@@ -1,0 +1,104 @@
+"""FBeta / F1 modules (subclasses of StatScores).
+
+Counterpart of ``metrics_tpu/classification/f_beta.py``.
+"""
+from typing import Any, Callable, Optional, Union
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.classification.precision_recall import _AveragedStatScores
+from metrics_tpu_torch.functional.classification.f_beta import _fbeta_compute
+
+
+class FBeta(_AveragedStatScores):
+    r"""F-beta score, accumulated over batches.
+
+    Example:
+        >>> import torch
+        >>> target = torch.tensor([0, 1, 2, 0, 1, 2])
+        >>> preds = torch.tensor([0, 2, 1, 0, 0, 1])
+        >>> f_beta = FBeta(num_classes=3, beta=0.5, device="cpu")
+        >>> round(float(f_beta(preds, target)), 4)
+        0.3333
+    """
+
+    def __init__(
+        self,
+        num_classes: Optional[int] = None,
+        beta: float = 1.0,
+        threshold: float = 0.5,
+        average: str = "micro",
+        mdmc_average: Optional[str] = None,
+        ignore_index: Optional[int] = None,
+        top_k: Optional[int] = None,
+        is_multiclass: Optional[bool] = None,
+        compute_on_step: bool = True,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        super().__init__(
+            num_classes=num_classes,
+            threshold=threshold,
+            average=average,
+            mdmc_average=mdmc_average,
+            ignore_index=ignore_index,
+            top_k=top_k,
+            is_multiclass=is_multiclass,
+            compute_on_step=compute_on_step,
+            dist_sync_on_step=dist_sync_on_step,
+            process_group=process_group,
+            dist_sync_fn=dist_sync_fn,
+            device=device,
+        )
+        self.beta = beta
+
+    def compute(self) -> Tensor:
+        tp, fp, tn, fn = self._get_final_stats()
+        return _fbeta_compute(tp, fp, tn, fn, self.beta, self.ignore_index, self.average, self.mdmc_reduce)
+
+
+class F1(FBeta):
+    r"""F1 score (FBeta with beta=1), accumulated over batches.
+
+    Example:
+        >>> import torch
+        >>> target = torch.tensor([0, 1, 2, 0, 1, 2])
+        >>> preds = torch.tensor([0, 2, 1, 0, 0, 1])
+        >>> f1 = F1(num_classes=3, device="cpu")
+        >>> round(float(f1(preds, target)), 4)
+        0.3333
+    """
+
+    def __init__(
+        self,
+        num_classes: Optional[int] = None,
+        threshold: float = 0.5,
+        average: str = "micro",
+        mdmc_average: Optional[str] = None,
+        ignore_index: Optional[int] = None,
+        top_k: Optional[int] = None,
+        is_multiclass: Optional[bool] = None,
+        compute_on_step: bool = True,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        super().__init__(
+            num_classes=num_classes,
+            beta=1.0,
+            threshold=threshold,
+            average=average,
+            mdmc_average=mdmc_average,
+            ignore_index=ignore_index,
+            top_k=top_k,
+            is_multiclass=is_multiclass,
+            compute_on_step=compute_on_step,
+            dist_sync_on_step=dist_sync_on_step,
+            process_group=process_group,
+            dist_sync_fn=dist_sync_fn,
+            device=device,
+        )

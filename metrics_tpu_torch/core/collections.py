@@ -1,0 +1,263 @@
+"""MetricCollection: several metrics sharing one update/forward call.
+
+Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
+
+* construction from a list or dict, output-key prefix, per-member kwarg filtering;
+* compute groups (``_group_map``): members whose update plane is identical
+  (same ``update`` function, update-relevant config and state schema — see
+  ``Metric._group_fingerprint``) share ONE update delta per step;
+* ``forward``: one update per compute group, the delta merged into each
+  member's own accumulator, each member's batch value computed from the
+  delta; ``dist_sync_on_step`` members of a group share ONE per-step sync of
+  that delta (``_step_sync_shares``). The port syncs whenever a
+  ``torch.distributed`` group is initialized, even at world size 1;
+* ``state_dict`` / ``load_state_dict`` with the ``_compute_group_manifest``:
+  one copy of each group's states plus a ``{member: representative}`` map,
+  readable by the JAX package and back.
+"""
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+from torch import nn
+
+from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.parallel.sync import all_reduce_state, dist_active, host_gather
+from metrics_tpu_torch.utils.checks import shared_input_format
+from metrics_tpu_torch.utils.device import check_same_device
+
+
+class MetricCollection(nn.ModuleDict):
+    """Chain metrics with the same call pattern into a single object.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MetricCollection, Accuracy, Precision, Recall
+        >>> target = torch.tensor([0, 2, 0, 2, 0, 1, 0, 2])
+        >>> preds = torch.tensor([2, 1, 2, 0, 1, 2, 2, 2])
+        >>> metrics = MetricCollection([Accuracy(device="cpu"),
+        ...                             Precision(num_classes=3, average='macro', device="cpu"),
+        ...                             Recall(num_classes=3, average='macro', device="cpu")])
+        >>> {k: round(float(v), 4) for k, v in metrics(preds, target).items()}
+        {'Accuracy': 0.125, 'Precision': 0.0667, 'Recall': 0.1111}
+    """
+
+    _GROUP_MANIFEST_KEY = "_compute_group_manifest"
+
+    def __init__(
+        self,
+        metrics: Union[List[Metric], Tuple[Metric, ...], Dict[str, Metric]],
+        prefix: Optional[str] = None,
+        compute_groups: bool = True,
+    ):
+        super().__init__()
+        self._enable_compute_groups = bool(compute_groups)
+        self._groups: Optional[Dict[str, str]] = None
+        if isinstance(metrics, dict):
+            for name, metric in metrics.items():
+                if not isinstance(metric, Metric):
+                    raise ValueError(f"Value {metric} belonging to key {name} is not an instance of `Metric`")
+                self[name] = metric
+        elif isinstance(metrics, (tuple, list)):
+            for metric in metrics:
+                if not isinstance(metric, Metric):
+                    raise ValueError(f"Input {metric} to `MetricCollection` is not a instance of `Metric`")
+                name = metric.__class__.__name__
+                if name in self:
+                    raise ValueError(f"Encountered two metrics both named {name}")
+                self[name] = metric
+        else:
+            raise ValueError("Unknown input to MetricCollection.")
+        self.prefix = self._check_prefix_arg(prefix)
+
+    def __setitem__(self, key: str, value: Metric) -> None:
+        self._groups = None  # group assignment is membership-derived
+        super().__setitem__(key, value)
+
+    def __delitem__(self, key: str) -> None:
+        self._groups = None
+        super().__delitem__(key)
+
+    # ---------------------------------------------------------- compute groups
+    def _group_map(self) -> Dict[str, str]:
+        """member name -> group representative name (identity map when off).
+        The representative is the group's first member in collection order."""
+        if self._groups is None:
+            groups: Dict[str, str] = {}
+            reps: Dict[Any, str] = {}
+            for name, metric in self.items():
+                key = metric._group_fingerprint() if self._enable_compute_groups else None
+                groups[name] = name if key is None else reps.setdefault(key, name)
+            self._groups = groups
+        return self._groups
+
+    @property
+    def compute_groups(self) -> Dict[str, Tuple[str, ...]]:
+        """The resolved groups: representative name -> member names."""
+        by_rep: Dict[str, list] = {}
+        for name, rep in self._group_map().items():
+            by_rep.setdefault(rep, []).append(name)
+        return {rep: tuple(members) for rep, members in by_rep.items()}
+
+    def _eager_shared_groups(self) -> Dict[str, str]:
+        """member -> representative, for groups of >= 2 members with mergeable states."""
+        gm = self._group_map()
+        sizes: Dict[str, int] = {}
+        for rep in gm.values():
+            sizes[rep] = sizes.get(rep, 0) + 1
+        return {k: rep for k, rep in gm.items() if sizes[rep] > 1 and self[rep]._fusable}
+
+    def _step_sync_shares(self, shared: Dict[str, str]) -> Dict[str, str]:
+        """member -> representative, for ``dist_sync_on_step`` members whose
+        per-step delta sync can be shared by the whole group: same
+        ``dist_sync_fn`` and ``process_group`` as the group's first such
+        member, and at least two of them."""
+        active = dist_active()
+        by_rep: Dict[str, list] = {}
+        for k, rep in shared.items():
+            m = self[k]
+            if m.dist_sync_on_step and m.compute_on_step and (m.dist_sync_fn is not None or active):
+                by_rep.setdefault(rep, []).append(k)
+        out: Dict[str, str] = {}
+        for rep, members in by_rep.items():
+            leader = self[members[0]]
+            share = [
+                k for k in members
+                if self[k].dist_sync_fn is leader.dist_sync_fn and self[k].process_group == leader.process_group
+            ]
+            if len(share) >= 2:
+                out.update({k: rep for k in share})
+        return out
+
+    def _synced_step_delta(self, rep: str, member: str, delta: Any, cache: Dict[str, Any]) -> Any:
+        """The group's batch delta after ONE shared cross-rank sync."""
+        if rep not in cache:
+            m = self[member]
+            if m.dist_sync_fn is not None:
+                cache[rep] = host_gather(delta, m._reductions, m.dist_sync_fn)
+            else:
+                cache[rep] = all_reduce_state(delta, m._reductions, group=m.process_group)
+        return cache[rep]
+
+    def _group_delta(self, rep: str, args: tuple, kwargs: dict) -> Dict[str, Any]:
+        """ONE batch delta for a compute group, from its representative."""
+        rm = self[rep]
+        check_same_device(rm.device, *args, *kwargs.values())
+        return rm._run_update_on_state(rm.init_state(), *args, **rm._filter_kwargs(**kwargs))
+
+    # --------------------------------------------------------------- forward
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Forward every member with the compute-group delta shared; kwargs
+        are filtered per member signature. Input formatting is memoized for
+        the step, so groups over the same ``(preds, target)`` format it once."""
+        with shared_input_format():
+            return self._forward_eager_body(*args, **kwargs)
+
+    def _forward_eager_body(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        shared = self._eager_shared_groups()
+        step_shares = self._step_sync_shares(shared)
+        deltas: Dict[str, Any] = {}
+        synced_deltas: Dict[str, Any] = {}
+        out: Dict[str, Any] = {}
+        for k, m in self.items():
+            kw = m._filter_kwargs(**kwargs)
+            rep = shared.get(k)
+            if rep is None:
+                out[self._set_prefix(k)] = m(*args, **kw)
+                continue
+            if rep not in deltas:
+                deltas[rep] = self._group_delta(rep, args, kwargs)
+            delta = deltas[rep]
+            m._computed = None
+            m._forward_cache = None
+            m._note_rows(args, kw)
+            m._set_state(m.merge_states(m._current_state(), delta))
+            value = None
+            if m.compute_on_step:
+                if k in step_shares:
+                    value = m._compute_on(self._synced_step_delta(rep, k, delta, synced_deltas), sync=False)
+                else:
+                    value = m._compute_on(delta, sync=m.dist_sync_on_step)
+                m._forward_cache = value
+            out[self._set_prefix(k)] = value
+        return out
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Accumulate: one update per compute group, merged into every member."""
+        shared = self._eager_shared_groups()
+        deltas: Dict[str, Any] = {}
+        for k, m in self.items():
+            kw = m._filter_kwargs(**kwargs)
+            rep = shared.get(k)
+            if rep is None:
+                m.update(*args, **kw)
+                continue
+            if rep not in deltas:
+                deltas[rep] = self._group_delta(rep, args, kwargs)
+            m._computed = None
+            m._note_rows(args, kw)
+            m._set_state(m.merge_states(m._current_state(), deltas[rep]))
+
+    def compute(self) -> Dict[str, Any]:
+        return {self._set_prefix(k): m.compute() for k, m in self.items()}
+
+    def reset(self) -> None:
+        for m in self.values():
+            m.reset()
+
+    def persistent(self, mode: bool = True) -> None:
+        for m in self.values():
+            m.persistent(mode)
+
+    # ----------------------------------------------------------- checkpoint
+    @staticmethod
+    def _entries_equal(a: Any, b: Any) -> bool:
+        if type(a) is not type(b):
+            return False
+        if isinstance(a, list):
+            return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    def _states_match(self, rep: Metric, member: Metric) -> bool:
+        a, b = rep.state_dict(), member.state_dict()
+        return set(a) == set(b) and all(self._entries_equal(a[k], b[k]) for k in a)
+
+    def state_dict(self, destination: Optional[dict] = None, prefix: str = "") -> dict:  # type: ignore[override]
+        """Persistent states of every member with compute-group copies merged:
+        one full copy per group, a ``{member: representative}`` manifest for
+        members whose values equal their representative's, and each such
+        member's ``_count_bound`` / ``_epoch_watermark`` kept per member."""
+        destination = {} if destination is None else destination
+        gm = self._group_map()
+        manifest: Dict[str, str] = {}
+        for name, m in self.items():
+            rep = gm[name]
+            if rep != name and self._states_match(self[rep], m):
+                manifest[name] = rep
+                destination[f"{prefix}{name}._count_bound"] = np.asarray(m._count_bound, dtype=np.int64)
+                destination[f"{prefix}{name}._epoch_watermark"] = np.asarray(m._epoch_watermark, dtype=np.int64)
+            else:
+                m.state_dict(destination, prefix=f"{prefix}{name}.")
+        destination[prefix + self._GROUP_MANIFEST_KEY] = dict(manifest)
+        return destination
+
+    def load_state_dict(self, state_dict: dict, prefix: str = "") -> None:  # type: ignore[override]
+        """Load a (possibly group-merged) collection checkpoint: manifest
+        members fan out from their representative's copy."""
+        manifest = state_dict.get(prefix + self._GROUP_MANIFEST_KEY, {})
+        for name, m in self.items():
+            src = manifest.get(name, name)
+            m.load_state_dict(state_dict, prefix=f"{prefix}{src}.")
+            if src != name:
+                for attr in ("_count_bound", "_epoch_watermark"):
+                    key = f"{prefix}{name}.{attr}"
+                    if key in state_dict:
+                        setattr(m, attr, int(state_dict[key]))
+
+    def _set_prefix(self, k: str) -> str:
+        return k if self.prefix is None else self.prefix + k
+
+    @staticmethod
+    def _check_prefix_arg(prefix: Optional[str]) -> Optional[str]:
+        if prefix is not None and not isinstance(prefix, str):
+            raise ValueError("Expected input `prefix` to be a string")
+        return prefix

@@ -1,0 +1,390 @@
+"""Core metric runtime: a stateful ``nn.Module`` whose states are registered tensors.
+
+Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
+
+* ``add_state`` with the sum / mean / min / max / cat / callable reductions;
+* the one-delta ``forward``: the batch is run through ``update`` on a fresh
+  state (the delta), the delta is merged into the accumulator with the same
+  per-state reduction that syncs ranks, and the batch value is computed from
+  the delta. With ``dist_sync_on_step`` the delta is synced first. States
+  whose reduction has no pairwise merge take the reference double-update path;
+* the wrapped ``compute``: cached value, sync at compute (whenever a
+  ``torch.distributed`` group is initialized or a ``dist_sync_fn`` is given),
+  and the local state restored after a synced compute;
+* ``reset``, and ``state_dict`` / ``load_state_dict`` in the JAX package's key
+  layout (host numpy values plus ``_count_bound`` and ``_epoch_watermark``), so
+  a checkpoint of either package loads into the other;
+* the compute-group fingerprint ``_group_fingerprint``.
+
+PyTorch runs eagerly, so there is no jit, no ``pure()`` and no scan here.
+States live on ``self.device``: ``cuda`` unless the caller passes
+``device="cpu"`` (see ``utils/device.py``). Count states are int64.
+"""
+import functools
+import inspect
+from abc import ABC, abstractmethod
+from copy import deepcopy
+from typing import Any, Callable, Dict, Optional, Union
+
+import numpy as np
+import torch
+from torch import Tensor, nn
+
+from metrics_tpu_torch.parallel.sync import (
+    ReduceFx,
+    all_reduce_state,
+    canonicalize_reduce_fx,
+    dist_active,
+    host_gather,
+    is_mergeable,
+    merge_values,
+)
+from metrics_tpu_torch.utils.device import check_same_device, resolve_device
+
+State = Dict[str, Any]
+
+# attributes holding the bound update/compute wrappers: rebuilt, never copied
+_WRAPPER_ATTRS = ("update", "compute", "_update_impl", "_compute_impl")
+
+
+class _Unfingerprintable(Exception):
+    pass
+
+
+def _fingerprint_value(v: Any) -> Any:
+    if v is None or isinstance(v, (bool, int, float, str, bytes)):
+        return v
+    if isinstance(v, Tensor):
+        arr = v.detach().cpu().numpy()
+        return ("arr", arr.shape, str(arr.dtype), arr.tobytes())
+    if isinstance(v, (list, tuple)):
+        return (type(v).__name__, tuple(_fingerprint_value(x) for x in v))
+    if isinstance(v, dict):
+        return ("dict", tuple((k, _fingerprint_value(x)) for k, x in sorted(v.items())))
+    if callable(v) or isinstance(v, type):
+        return ("fn", id(v))
+    try:
+        hash(v)
+    except TypeError:
+        raise _Unfingerprintable(type(v).__name__) from None
+    return ("obj", type(v).__name__, v)
+
+
+class Metric(nn.Module, ABC):
+    """Base class of all metrics: stateful accumulation and cross-rank sync.
+
+    Args:
+        compute_on_step: ``forward`` returns the batch value if True.
+        dist_sync_on_step: sync the batch delta across ranks inside every ``forward``.
+        process_group: the ``torch.distributed`` group the sync runs over
+            (``None``: the default world group).
+        dist_sync_fn: custom gather ``fn(tensor) -> [tensor per rank]``; when
+            given, sync gathers, stacks and reduces through it instead of
+            the bucketed ``all_reduce``.
+        device: where the states live. ``None`` means ``cuda`` and raises
+            when no GPU is present; pass ``"cpu"`` to run on the CPU.
+    """
+
+    # Attr names that feed ``update``; a subclass declares them to opt its
+    # instances into MetricCollection compute groups. None means never grouped.
+    _GROUP_UPDATE_ATTRS: Optional[tuple] = None
+
+    def __init__(
+        self,
+        compute_on_step: bool = True,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.compute_on_step = compute_on_step
+        self.dist_sync_on_step = dist_sync_on_step
+        self.process_group = process_group
+        self.dist_sync_fn = dist_sync_fn
+        self._to_sync = True
+        self._in_forward = False
+        self._computed = None
+        self._forward_cache = None
+        # host-side bookkeeping persisted by state_dict, as in the JAX package:
+        # elements processed this epoch, and batches folded into the accumulator
+        self._count_bound = 0
+        self._epoch_watermark = 0
+
+        self._defaults: Dict[str, Any] = {}  # tensor templates on self.device, or []
+        self._persistent: Dict[str, bool] = {}
+        self._reductions: Dict[str, ReduceFx] = {}
+        self._wrap_methods()
+
+    def _wrap_methods(self) -> None:
+        self._update_impl = type(self).update.__get__(self)
+        self._compute_impl = type(self).compute.__get__(self)
+        self._update_signature = inspect.signature(self._update_impl)
+        self.update = self._wrap_update(self._update_impl)
+        self.compute = self._wrap_compute(self._compute_impl)
+
+    # ------------------------------------------------------------------ state
+    def add_state(
+        self, name: str, default: Any, dist_reduce_fx: Optional[ReduceFx] = None, persistent: bool = False
+    ) -> None:
+        """Register a state: a tensor (fixed-shape state, placed on ``self.device``)
+        or an empty list (cat state)."""
+        is_list = isinstance(default, list) and len(default) == 0
+        is_arraylike = isinstance(default, (int, float, np.ndarray, Tensor)) and not isinstance(default, bool)
+        if not (is_list or is_arraylike):
+            raise ValueError("state variable must be a tensor or any empty list (where you can append tensors)")
+        self._reductions[name] = canonicalize_reduce_fx(dist_reduce_fx)
+        self._persistent[name] = persistent
+        if is_list:
+            self._defaults[name] = []
+            setattr(self, name, [])
+            return
+        template = torch.as_tensor(default).to(self.device)
+        self._defaults[name] = template
+        self.register_buffer(name, template.clone(), persistent=False)
+
+    def _append(self, name: str, value: Tensor) -> None:
+        """Append to a cat (list) state."""
+        getattr(self, name).append(value)
+
+    def init_state(self) -> State:
+        """Fresh default state dict, on ``self.device``."""
+        return {n: (t.clone() if isinstance(t, Tensor) else []) for n, t in self._defaults.items()}
+
+    def _current_state(self) -> State:
+        return {name: getattr(self, name) for name in self._defaults}
+
+    def _set_state(self, state: State) -> None:
+        for name, value in state.items():
+            setattr(self, name, value)
+
+    def _run_update_on_state(self, state: State, *args: Any, **kwargs: Any) -> State:
+        """Run the subclass ``update`` as a function of ``state``."""
+        saved = self._current_state()
+        self._set_state(state)
+        try:
+            self._update_impl(*args, **kwargs)
+            return self._current_state()
+        finally:
+            self._set_state(saved)
+
+    def merge_states(self, a: State, b: State) -> State:
+        """Pairwise merge of two state dicts (the one-delta forward's fold)."""
+        return {name: merge_values(self._reductions[name], a[name], b[name]) for name in self._defaults}
+
+    # --------------------------------------------------------------- forward
+    @property
+    def _fusable(self) -> bool:
+        return all(is_mergeable(self._reductions[n], self._defaults[n]) for n in self._defaults)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Accumulate this batch and (if ``compute_on_step``) return its batch value."""
+        if self._fusable:
+            return self._forward_fused(*args, **kwargs)
+        return self._forward_reference(*args, **kwargs)
+
+    def _forward_fused(self, *args: Any, **kwargs: Any) -> Any:
+        self._computed = None
+        self._forward_cache = None
+        check_same_device(self.device, *args, *kwargs.values())
+        self._note_rows(args, kwargs)
+        delta = self._run_update_on_state(self.init_state(), *args, **kwargs)
+        self._set_state(self.merge_states(self._current_state(), delta))
+        if not self.compute_on_step:
+            return None
+        self._forward_cache = self._compute_on(delta, sync=self.dist_sync_on_step)
+        return self._forward_cache
+
+    def _compute_on(self, state: State, sync: bool) -> Any:
+        """The batch value: ``compute`` run on ``state`` (synced across ranks
+        first when ``sync``), leaving the accumulator and compute cache as they were."""
+        self._to_sync = sync
+        self._in_forward = True
+        acc = self._current_state()
+        self._set_state(state)
+        try:
+            return self.compute()
+        finally:
+            self._set_state(acc)
+            self._to_sync = True
+            self._in_forward = False
+            self._computed = None
+
+    def _forward_reference(self, *args: Any, **kwargs: Any) -> Any:
+        """Double-update path for states without a pairwise merge."""
+        self.update(*args, **kwargs)
+        self._forward_cache = None
+        if not self.compute_on_step:
+            return None
+        self._to_sync = self.dist_sync_on_step
+        self._in_forward = True
+        cache = self._current_state()
+        bound, watermark = self._count_bound, self._epoch_watermark
+        self._set_state(self.init_state())
+        try:
+            self.update(*args, **kwargs)
+            self._forward_cache = self.compute()
+        finally:
+            self._set_state(cache)
+            self._count_bound, self._epoch_watermark = bound, watermark
+            self._to_sync = True
+            self._in_forward = False
+        self._computed = None
+        return self._forward_cache
+
+    def _note_rows(self, args: tuple, kwargs: dict) -> None:
+        # min over argument sizes ~ the number of labeled samples; every
+        # accumulation path notes its rows once per logical step, which is
+        # also where the epoch watermark advances
+        sizes = [a.numel() for a in (*args, *kwargs.values()) if isinstance(a, Tensor)]
+        if sizes:
+            self._count_bound += min(sizes)
+        if not self._in_forward:
+            self._epoch_watermark += 1
+
+    # ------------------------------------------------------------------ sync
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None) -> None:
+        """Replace the current state by its cross-rank reduction."""
+        state = self._current_state()
+        if dist_sync_fn is not None:
+            synced = host_gather(state, self._reductions, dist_sync_fn)
+        else:
+            synced = all_reduce_state(state, self._reductions, group=self.process_group)
+        self._set_state(synced)
+
+    def _wrap_update(self, update: Callable) -> Callable:
+        @functools.wraps(update)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            self._computed = None
+            check_same_device(self.device, *args, *kwargs.values())
+            self._note_rows(args, kwargs)
+            return update(*args, **kwargs)
+
+        return wrapped_func
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        @functools.wraps(compute)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if self._computed is not None:
+                return self._computed
+            synced = self._to_sync and (self.dist_sync_fn is not None or dist_active())
+            cache = self._current_state()
+            if synced:
+                self._sync_dist(self.dist_sync_fn)
+            try:
+                self._computed = compute(*args, **kwargs)
+            finally:
+                if synced:
+                    self._set_state(cache)
+            return self._computed
+
+        return wrapped_func
+
+    @abstractmethod
+    def update(self) -> None:  # pylint: disable=E0202
+        """Override to update registered state from a batch."""
+
+    @abstractmethod
+    def compute(self) -> Any:  # pylint: disable=E0202
+        """Override to compute the final value from (synced) state."""
+
+    # ------------------------------------------------------------- lifecycle
+    def reset(self) -> None:
+        """Reset all states to their defaults."""
+        self._computed = None
+        self._count_bound = 0
+        self._epoch_watermark = 0
+        self._set_state(self.init_state())
+
+    def clone(self) -> "Metric":
+        return deepcopy(self)
+
+    def __getstate__(self) -> dict:
+        return {k: v for k, v in self.__dict__.items() if k not in _WRAPPER_ATTRS}
+
+    def __setstate__(self, state: dict) -> None:
+        super().__setstate__(state)
+        self._wrap_methods()
+
+    def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "Metric":
+        # ``.to()`` / ``.cuda()`` move the registered states; the templates
+        # and list states follow, and ``self.device`` records where they went
+        super()._apply(fn, *args, **kwargs)
+        self._defaults = {k: fn(v) if isinstance(v, Tensor) else v for k, v in self._defaults.items()}
+        for name, default in self._defaults.items():
+            if isinstance(default, list):
+                setattr(self, name, [fn(v) for v in getattr(self, name)])
+        self.device = fn(torch.empty(0, device=self.device)).device
+        return self
+
+    # ------------------------------------------------------------ checkpoint
+    def persistent(self, mode: bool = False) -> None:
+        for key in self._persistent:
+            self._persistent[key] = mode
+
+    def state_dict(self, destination: Optional[dict] = None, prefix: str = "") -> dict:  # type: ignore[override]
+        """Persistent states as host numpy, in the JAX package's key layout."""
+        destination = {} if destination is None else destination
+        for key in self._defaults:
+            if self._persistent[key]:
+                value = getattr(self, key)
+                if isinstance(value, list):
+                    destination[prefix + key] = [v.detach().cpu().numpy() for v in value]
+                else:
+                    destination[prefix + key] = value.detach().cpu().numpy()
+        destination[prefix + "_count_bound"] = np.asarray(self._count_bound, dtype=np.int64)
+        destination[prefix + "_epoch_watermark"] = np.asarray(self._epoch_watermark, dtype=np.int64)
+        return destination
+
+    def load_state_dict(self, state_dict: dict, prefix: str = "") -> None:  # type: ignore[override]
+        """Load states saved by either package's ``state_dict``; values are cast
+        to this metric's state dtypes and placed on ``self.device``."""
+        for key, default in self._defaults.items():
+            if prefix + key not in state_dict:
+                continue
+            value = state_dict[prefix + key]
+            if isinstance(value, list):
+                setattr(self, key, [torch.tensor(np.asarray(v), device=self.device) for v in value])
+            else:
+                setattr(self, key, torch.tensor(np.asarray(value), device=self.device, dtype=default.dtype))
+        if prefix + "_count_bound" in state_dict:
+            self._count_bound = int(state_dict[prefix + "_count_bound"])
+        if prefix + "_epoch_watermark" in state_dict:
+            self._epoch_watermark = int(state_dict[prefix + "_epoch_watermark"])
+
+    # ---------------------------------------------------------- compute groups
+    def _group_fingerprint(self) -> Optional[Any]:
+        """Hashable identity of this metric's update and state plane, or None.
+
+        Two metrics with equal fingerprints run the same ``update`` function
+        (found on the MRO) with the same update-relevant config over the same
+        state schema on the same device, so inside a ``MetricCollection`` one
+        shared update delta serves them all.
+        """
+        attrs = type(self)._GROUP_UPDATE_ATTRS
+        if attrs is None:
+            return None
+        update_fn = next((vars(k)["update"] for k in type(self).__mro__ if "update" in vars(k)), None)
+        try:
+            config = tuple((a, _fingerprint_value(getattr(self, a, None))) for a in attrs)
+            schema = tuple(
+                (n, _fingerprint_value(self._defaults[n]), _fingerprint_value(self._reductions[n]))
+                for n in sorted(self._defaults)
+            )
+        except _Unfingerprintable:
+            return None
+        return (update_fn, config, schema, str(self.device))
+
+    # -------------------------------------------------------------- plumbing
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """Keep only kwargs accepted by this metric's ``update``."""
+        _params = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+        _sign_params = self._update_signature.parameters
+        filtered_kwargs = {
+            k: v for k, v in kwargs.items() if (k in _sign_params and _sign_params[k].kind not in _params)
+        }
+        return filtered_kwargs or kwargs
+
+    def extra_repr(self) -> str:
+        return f"device={self.device}"

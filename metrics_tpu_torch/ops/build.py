@@ -1,0 +1,71 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is a plain C interface compiled by ``nvcc`` for
+``sm_90a`` into a shared library on first use, then loaded with ``ctypes``.
+Libraries go to ``metrics_tpu_torch/_build/`` (listed in ``.gitignore``),
+named by a hash of the source and flags so an edited source never loads a
+stale build. Nothing here runs at import time; where ``nvcc`` is missing the
+build raises.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class KernelLibraries:
+    """The built and loaded kernel libraries of this process, with their build records."""
+
+    def __init__(self) -> None:
+        self.libs: Dict[str, ctypes.CDLL] = {}
+        self.build_seconds: Dict[str, float] = {}
+        self.build_log: Dict[str, str] = {}
+
+    def load(self, name: str, force: bool = False) -> ctypes.CDLL:
+        """The loaded library for ``csrc/<name>.cu``; ``force`` rebuilds it from source."""
+        if force or name not in self.libs:
+            self.libs[name] = ctypes.CDLL(str(self.build(name, force)))
+        return self.libs[name]
+
+    def build(self, name: str, force: bool = False) -> Path:
+        src = CSRC_DIR / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}-{digest}.so"
+        if out.exists() and not force:
+            return out
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {src.name}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent process never loads a half-written library
+        self.build_seconds[name] = time.perf_counter() - t0
+        self.build_log[name] = proc.stdout + proc.stderr
+        return out
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from ``CUDA_HOME`` (default ``/usr/local/cuda``) or ``PATH``."""
+    home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+    candidate = home / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA kernels build on the GPU machine")
+    return found
+
+
+KERNELS = KernelLibraries()

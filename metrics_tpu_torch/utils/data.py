@@ -1,0 +1,128 @@
+"""Tensor/data transforms shared by the functional kernels.
+
+Counterpart of ``metrics_tpu/utils/data.py``. One-hot encodings are built by
+comparing against ``arange`` (out-of-range labels give an all-zero row, as
+``jax.nn.one_hot`` does), and ties in ``select_topk`` go to the lowest index,
+as ``jax.lax.top_k`` breaks them.
+"""
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Union
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+
+def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:
+    """Concatenate a (list of) tensor(s) along dim 0."""
+    x = x if isinstance(x, (list, tuple)) else [x]
+    return torch.cat([torch.atleast_1d(v) for v in x], dim=0)
+
+
+def dim_zero_sum(x: Tensor) -> Tensor:
+    return torch.sum(x, dim=0)
+
+
+def dim_zero_mean(x: Tensor) -> Tensor:
+    return torch.mean(x.float() if not x.is_floating_point() else x, dim=0)
+
+
+def dim_zero_min(x: Tensor) -> Tensor:
+    return torch.min(x, dim=0).values
+
+
+def dim_zero_max(x: Tensor) -> Tensor:
+    return torch.max(x, dim=0).values
+
+
+def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor:
+    """Convert an ``(N, ...)`` integer label tensor to a one-hot ``(N, C, ...)`` int32 tensor.
+
+    Example:
+        >>> import torch
+        >>> to_onehot(torch.tensor([0, 1, 2]), num_classes=3)
+        tensor([[1, 0, 0],
+                [0, 1, 0],
+                [0, 0, 1]], dtype=torch.int32)
+    """
+    if num_classes is None:
+        num_classes = int(label_tensor.max()) + 1
+    classes = torch.arange(num_classes, device=label_tensor.device, dtype=torch.int64)
+    classes = classes.view(1, num_classes, *([1] * (label_tensor.ndim - 1)))
+    return (label_tensor.to(torch.int64).unsqueeze(1) == classes).to(torch.int32)
+
+
+def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
+    """Int32 tensor with 1s at the ``topk`` largest entries along ``dim``.
+
+    Example:
+        >>> import torch
+        >>> select_topk(torch.tensor([[1.1, 2.0, 3.0], [2.0, 1.0, 0.5]]), topk=2)
+        tensor([[0, 1, 1],
+                [1, 1, 0]], dtype=torch.int32)
+    """
+    if topk == 1:
+        # argmax returns the first maximal index
+        idx = torch.argmax(prob_tensor, dim=dim, keepdim=True)
+    else:
+        # a stable descending sort keeps the lower index first among ties
+        idx = torch.sort(prob_tensor, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
+    out = torch.zeros_like(prob_tensor, dtype=torch.int32)
+    return out.scatter_(dim, idx, 1)
+
+
+def to_categorical(tensor: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Argmax along ``argmax_dim``.
+
+    Example:
+        >>> import torch
+        >>> to_categorical(torch.tensor([[0.2, 0.5], [0.9, 0.1]]))
+        tensor([1, 0], dtype=torch.int32)
+    """
+    return torch.argmax(tensor, dim=argmax_dim).to(torch.int32)
+
+
+def get_num_classes(preds: Tensor, target: Tensor, num_classes: Optional[int] = None) -> int:
+    """Infer/validate the number of classes from the data values."""
+    num_target_classes = int(target.max()) + 1
+    num_pred_classes = int(preds.max()) + 1 if not preds.is_floating_point() or num_classes is None else num_classes
+    if num_classes is None:
+        return max(num_pred_classes, num_target_classes)
+    if num_classes != max(num_pred_classes, num_target_classes):
+        rank_zero_warn(
+            f"You have set {num_classes} number of classes which is"
+            f" different from predicted ({num_pred_classes}) and"
+            f" target ({num_target_classes}) number of classes",
+            RuntimeWarning,
+        )
+    return num_classes
+
+
+def apply_to_collection(
+    data: Any,
+    dtype: Union[type, tuple],
+    function: Callable,
+    *args: Any,
+    **kwargs: Any,
+) -> Any:
+    """Recursively apply ``function`` to all elements of type ``dtype`` in a collection.
+
+    Example:
+        >>> apply_to_collection({"a": 2, "b": [1, 2]}, int, lambda x: x * 2)
+        {'a': 4, 'b': [2, 4]}
+    """
+    elem_type = type(data)
+
+    if isinstance(data, dtype):
+        return function(data, *args, **kwargs)
+
+    if isinstance(data, Mapping):
+        return elem_type({k: apply_to_collection(v, dtype, function, *args, **kwargs) for k, v in data.items()})
+
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # namedtuple
+        return elem_type(*(apply_to_collection(d, dtype, function, *args, **kwargs) for d in data))
+
+    if isinstance(data, Sequence) and not isinstance(data, str):
+        return elem_type([apply_to_collection(d, dtype, function, *args, **kwargs) for d in data])
+
+    return data

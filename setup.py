@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Packaging for metrics_tpu (reference L0: setup.py + torchmetrics/info.py)."""
+"""Packaging for metrics_tpu (reference L0: setup.py + torchmetrics/info.py) and its
+PyTorch/CUDA port metrics_tpu_torch, which ships its CUDA sources (csrc/*.cu) to build on first use."""
 import os
 
 from setuptools import find_packages, setup
@@ -25,7 +26,8 @@ setup(
     author=info.__author__,
     license=info.__license__,
     packages=find_packages(exclude=["tests", "tests.*"]),
+    package_data={"metrics_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.9",
     install_requires=["jax>=0.4.30", "numpy"],
-    extras_require={"test": ["pytest", "scikit-learn", "scipy", "nltk"]},
+    extras_require={"test": ["pytest", "scikit-learn", "scipy", "nltk"], "torch": ["torch"]},
 )

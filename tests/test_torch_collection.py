@@ -1,0 +1,274 @@
+"""MetricCollection: the port against the JAX package, and a real two-rank sync.
+
+* The main-path collection ``[Accuracy, F1, Precision, Recall]`` (macro,
+  C = 32) and the binned collection ``[BinnedAUROC, BinnedAveragePrecision]``:
+  per-step forward values and the epoch compute equal the JAX package's on the
+  same numpy batches. Classification values agree to rtol 1e-6 and the binned
+  AUROC / AP to rtol 1e-5 (sums taken in another order); counts are equal.
+* Compute groups run one update per group per step.
+* ``dist_sync_on_step`` through a fake two-rank ``dist_sync_fn``, the same
+  fake on both sides.
+* Two real processes over ``torch.distributed`` (Gloo, a FileStore under
+  ``tmp_path``): the synced values on both ranks equal one process over the
+  concatenated data.
+* ``state_dict`` carried across: half an epoch in one package, the rest in the
+  other, equal to one package over all batches (both directions).
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import metrics_tpu as mt
+import metrics_tpu_torch as pt
+from metrics_tpu_torch.classification.stat_scores import StatScores
+
+torch.set_num_threads(1)
+
+C = 32
+_RTOL = {"Accuracy": 1e-6, "F1": 1e-6, "Precision": 1e-6, "Recall": 1e-6,
+         "BinnedAUROC": 1e-5, "BinnedAveragePrecision": 1e-5}
+_REPO = Path(__file__).resolve().parents[1]
+
+
+def _main_path(pkg, **kw):
+    extra = {"device": "cpu"} if pkg is pt else {}
+    return pkg.MetricCollection([
+        pkg.Accuracy(**kw, **extra),
+        pkg.F1(num_classes=C, average="macro", **kw, **extra),
+        pkg.Precision(num_classes=C, average="macro", **kw, **extra),
+        pkg.Recall(num_classes=C, average="macro", **kw, **extra),
+    ])
+
+
+def _binned(pkg, **kw):
+    extra = {"device": "cpu"} if pkg is pt else {}
+    return pkg.MetricCollection([
+        pkg.BinnedAUROC(thresholds=64, **kw, **extra),
+        pkg.BinnedAveragePrecision(thresholds=64, **kw, **extra),
+    ])
+
+
+def _batches(kind, steps=4, n=64, seed=0):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        if kind == "main":
+            logits = rng.randn(n, C)
+            probs = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(np.float32)
+            out.append((probs, rng.randint(0, C, n)))
+        else:
+            out.append((rng.rand(n).astype(np.float32), rng.randint(0, 2, n)))
+    return out
+
+
+def _assert_values(got: dict, want: dict):
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=_RTOL[k], atol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("kind,build", [("main", _main_path), ("binned", _binned)])
+def test_collection_forward_and_compute_match_jax(kind, build):
+    ref, port = build(mt), build(pt)
+    assert port.compute_groups == ref.compute_groups
+    for preds, target in _batches(kind):
+        _assert_values(port(torch.from_numpy(preds), torch.from_numpy(target)),
+                       ref(jnp.asarray(preds), jnp.asarray(target)))
+    _assert_values(port.compute(), ref.compute())
+    port.reset()
+    ref.reset()
+    preds, target = _batches(kind, steps=1, seed=9)[0]
+    _assert_values(port(torch.from_numpy(preds), torch.from_numpy(target)),
+                   ref(jnp.asarray(preds), jnp.asarray(target)))
+    _assert_values(port.compute(), ref.compute())
+
+
+@pytest.mark.parametrize("compute_groups,updates_per_step", [(True, 1), (False, 3)])
+def test_one_update_per_compute_group(monkeypatch, compute_groups, updates_per_step):
+    calls = []
+    original = StatScores.update
+
+    def counting_update(self, preds, target):
+        calls.append(type(self).__name__)
+        return original(self, preds, target)
+
+    monkeypatch.setattr(StatScores, "update", counting_update)
+    col = _main_path(pt)
+    col = pt.MetricCollection(dict(col.items()), compute_groups=compute_groups)
+    assert col.compute_groups == ({"Accuracy": ("Accuracy",), "F1": ("F1", "Precision", "Recall")}
+                                  if compute_groups else {k: (k,) for k in col})
+    batches = _batches("main", steps=3)
+    for preds, target in batches:
+        col(torch.from_numpy(preds), torch.from_numpy(target))
+    assert len(calls) == 3 * updates_per_step
+    col.update(*(torch.from_numpy(x) for x in batches[0]))
+    assert len(calls) == 4 * updates_per_step
+    # every member of the group holds the same accumulated counts
+    assert torch.equal(col["F1"].tp, col["Recall"].tp) and torch.equal(col["F1"].fp, col["Precision"].fp)
+
+
+class _FakeWorld:
+    """fn(x) -> [x, other]: a two-rank world whose other rank holds ``x // 2 + 1``
+    (a different, data-dependent state), counting its calls."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, x):
+        self.calls += 1
+        return [x, x // 2 + 1]
+
+
+@pytest.mark.parametrize("kind,build", [("main", _main_path), ("binned", _binned)])
+def test_dist_sync_on_step_with_fake_world_matches_jax(kind, build):
+    ref_world, port_world = _FakeWorld(), _FakeWorld()
+    ref = build(mt, dist_sync_on_step=True, dist_sync_fn=ref_world)
+    port = build(pt, dist_sync_on_step=True, dist_sync_fn=port_world)
+    plain = build(pt)
+    for preds, target in _batches(kind, steps=3):
+        got = port(torch.from_numpy(preds), torch.from_numpy(target))
+        _assert_values(got, ref(jnp.asarray(preds), jnp.asarray(target)))
+        unsynced = plain(torch.from_numpy(preds), torch.from_numpy(target))
+        assert any(not torch.equal(got[k], unsynced[k]) for k in got)  # the sync changed the values
+    assert port_world.calls == ref_world.calls  # one shared sync per group per step
+    _assert_values(port.compute(), ref.compute())
+
+
+def test_cat_state_sync_through_fake_world_matches_jax():
+    """List (cat) states gather element-major through a ``dist_sync_fn``, as in the JAX package."""
+    ref = mt.StatScores(reduce="samples", dist_sync_on_step=True, dist_sync_fn=_FakeWorld())
+    port = pt.StatScores(reduce="samples", dist_sync_on_step=True, dist_sync_fn=_FakeWorld(), device="cpu")
+    rng = np.random.RandomState(4)
+    for _ in range(2):
+        preds, target = rng.rand(6, 3).astype(np.float32), rng.randint(0, 2, (6, 3))
+        np.testing.assert_array_equal(port(torch.from_numpy(preds), torch.from_numpy(target)).numpy(),
+                                      np.asarray(ref(jnp.asarray(preds), jnp.asarray(target))))
+    np.testing.assert_array_equal(port.compute().numpy(), np.asarray(ref.compute()))
+
+
+_WORKER = textwrap.dedent("""
+    import json, sys
+    import numpy as np, torch, torch.distributed as dist
+    sys.path.insert(0, {repo!r})
+    import metrics_tpu_torch as pt
+    rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=2)
+    batches = json.load(open({data!r}))
+    result = {{}}
+    for kind in ("main", "binned"):
+        if kind == "main":
+            col = pt.MetricCollection([m(dist_sync_on_step=True, device="cpu", **kw) for m, kw in (
+                (pt.Accuracy, {{}}), (pt.F1, {{"num_classes": {c}, "average": "macro"}}),
+                (pt.Precision, {{"num_classes": {c}, "average": "macro"}}),
+                (pt.Recall, {{"num_classes": {c}, "average": "macro"}}))])
+        else:
+            col = pt.MetricCollection([pt.BinnedAUROC(thresholds=64, dist_sync_on_step=True, device="cpu"),
+                                       pt.BinnedAveragePrecision(thresholds=64, dist_sync_on_step=True, device="cpu")])
+        steps = []
+        for preds, target in batches[kind][rank]:
+            values = col(torch.tensor(preds, dtype=torch.float32), torch.tensor(target))
+            steps.append({{k: v.item() for k, v in values.items()}})
+        result[kind] = {{"steps": steps, "epoch": {{k: v.item() for k, v in col.compute().items()}}}}
+    # the bucketed all_reduce: one call per (dtype, op) bucket, mean = sum / world
+    from metrics_tpu_torch.parallel.sync import all_reduce_state
+    calls = []
+    real = dist.all_reduce
+    dist.all_reduce = lambda t, *a, **k: (calls.append(str(t.dtype)), real(t, *a, **k))[1]
+    state = {{"a": torch.tensor([rank, 1]), "b": torch.tensor(rank + 2), "c": torch.tensor([rank * 1.0, 4.0]),
+             "d": torch.tensor(0.5 + rank), "e": torch.tensor([rank + 0.25]), "f": torch.tensor(10 - rank)}}
+    fx = {{"a": "sum", "b": "sum", "c": "mean", "d": "sum", "e": "min", "f": "max"}}
+    synced = all_reduce_state(state, fx)
+    dist.all_reduce = real
+    result["buckets"] = sorted(calls)
+    result["synced"] = {{k: v.tolist() for k, v in synced.items()}}
+    result["local_kept"] = state["a"].tolist() == [rank, 1]
+    cat = pt.StatScores(reduce="samples", device="cpu")
+    cat.update(torch.tensor([0.2, 0.8]), torch.tensor([0, 1]))
+    try:
+        cat.compute()
+        result["cat_sync"] = "synced"
+    except NotImplementedError:
+        result["cat_sync"] = "NotImplementedError"
+    json.dump(result, open(out, "w"))
+    dist.destroy_process_group()
+""")
+
+
+def test_two_process_gloo_sync_equals_one_process(tmp_path):
+    per_rank = {kind: [_batches(kind, steps=3, n=32, seed=10 + r) for r in range(2)] for kind in ("main", "binned")}
+    data = tmp_path / "batches.json"
+    data.write_text(json.dumps({k: [[[p.tolist(), t.tolist()] for p, t in r] for r in v] for k, v in per_rank.items()}))
+    script = tmp_path / "worker.py"
+    script.write_text(_WORKER.format(repo=str(_REPO), data=str(data), c=C))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [
+        subprocess.Popen([sys.executable, str(script), str(r), str(tmp_path / "store"), str(tmp_path / f"out{r}.json")],
+                         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)
+    ]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    results = [json.loads((tmp_path / f"out{r}.json").read_text()) for r in range(2)]
+
+    for kind, build in (("main", _main_path), ("binned", _binned)):
+        single = build(pt)
+        for step in range(3):
+            preds = np.concatenate([per_rank[kind][r][step][0] for r in range(2)])
+            target = np.concatenate([per_rank[kind][r][step][1] for r in range(2)])
+            want = single(torch.from_numpy(preds), torch.from_numpy(target))
+            for r in range(2):
+                for k, v in want.items():
+                    np.testing.assert_allclose(results[r][kind]["steps"][step][k], v.item(), rtol=_RTOL[k], err_msg=k)
+        for r in range(2):
+            for k, v in single.compute().items():
+                np.testing.assert_allclose(results[r][kind]["epoch"][k], v.item(), rtol=_RTOL[k], err_msg=k)
+
+    for r in range(2):
+        assert results[r]["buckets"] == ["torch.float32", "torch.float32", "torch.int64", "torch.int64"]
+        assert results[r]["synced"] == {"a": [1, 2], "b": 5, "c": [0.5, 4.0], "d": 2.0, "e": [0.25], "f": 10}
+        assert results[r]["local_kept"]
+        assert results[r]["cat_sync"] == "NotImplementedError"  # cat-state all_gather is not ported yet
+
+
+@pytest.mark.parametrize("kind,build", [("main", _main_path), ("binned", _binned)])
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_state_dict_carried_across_packages(kind, build, direction):
+    batches = _batches(kind, steps=4, seed=3)
+    full = build(mt)
+    for preds, target in batches:
+        full(jnp.asarray(preds), jnp.asarray(target))
+
+    ref, port = build(mt), build(pt)
+    ref.persistent(True)
+    port.persistent(True)
+    first, second = (ref, port) if direction == "jax_to_port" else (port, ref)
+    for preds, target in batches[:2]:
+        first(*(_as(first, x) for x in (preds, target)))
+    saved = first.state_dict()
+    if kind == "main":  # the group manifest rides the checkpoint: one copy of the StatScores group
+        assert saved["_compute_group_manifest"] == {"Precision": "F1", "Recall": "F1"}
+        assert "Precision.tp" not in saved and "F1.tp" in saved
+    second.load_state_dict(saved)
+    for preds, target in batches[2:]:
+        second(*(_as(second, x) for x in (preds, target)))
+    got = {k: torch.as_tensor(np.asarray(v)) for k, v in second.compute().items()}
+    _assert_values(got, full.compute())
+    for name, m in second.items():
+        assert m._epoch_watermark == 4 and m._count_bound == full[name]._count_bound
+
+
+def _as(collection, x):
+    return torch.from_numpy(x) if isinstance(collection, pt.MetricCollection) else jnp.asarray(x)
