@@ -13,8 +13,13 @@ Phases, in order; each raises on failure and none is caught:
 3. K1 against its plain PyTorch version and an independent numpy oracle
    (sorted scores + ``searchsorted``) at N = 4,194,304, T = 2,048 and at
    N = 4,194,303, T = 2,047 with shuffled, duplicate and infinite thresholds
-   and NaN / +-inf scores. Bool weights must match exactly, float weights to
-   rtol 1e-5. Times the kernel and the plain version with CUDA events.
+   and NaN / +-inf scores, with the grid ranked once (one launch a call) and
+   unranked (the call ranks it on the card). Bool weights must match exactly,
+   float weights to rtol 1e-5. Times the kernel and the plain version with
+   CUDA events, the host enqueue per call with the card held busy, and the
+   yardstick ``torch_ops_ms`` (``searchsorted`` + weighted ``bincount`` +
+   reverse ``cumsum``, which the port never calls); ``torch.profiler`` must
+   show one device operation per call and no fill.
 4. Path A, the main path: ``MetricCollection([Accuracy, F1, Precision,
    Recall])`` (macro, C = 1,000, ``dist_sync_on_step``) inside a one-rank NCCL
    process group, 20 steps of 4,096 x 1,000 probabilities. Per-step values
@@ -22,7 +27,8 @@ Phases, in order; each raises on failure and none is caught:
    a numpy ``bincount`` confusion oracle.
 5. Path B: ``MetricCollection([BinnedAUROC, BinnedAveragePrecision])`` with
    2,048 thresholds and ``dist_sync_on_step`` in the same group, 10 steps of
-   4,194,304 binary scores. K1's launch count must rise by exactly 2 per step.
+   4,194,304 binary scores. K1's launch count must rise by exactly 2 per step,
+   and a profiled extra step must show 2 K1 kernels and no threshold ranking.
    Counts are checked exactly against the numpy oracle and the plain version
    on the card; AUROC / AP to rtol 1e-5.
 6. The ``kernels`` JSON line, then the device JSON as the last line.
@@ -54,42 +60,6 @@ def _check(ok, what):
     if not ok:
         raise AssertionError(what)
     print(f"  ok: {what}")
-
-
-def _cuda_ms(fn, reps, flush):
-    """Median milliseconds of ``fn`` on the card, one CUDA-event pair per call.
-
-    Before each call the 50 MB L2 cache is flushed (a fresh batch reaches a
-    metric from device memory) and the card is kept busy with a spin, so the
-    start event fires after the host has enqueued the call: the pair times
-    the device work alone, not the host's enqueue.
-    """
-    import torch
-
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _cuda_ms_back_to_back(fn, launches):
-    """Milliseconds per call over ``launches`` calls between one event pair (L2 warm, host overhead included)."""
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(launches):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / launches
 
 
 def _oracle_counts(scores, positive, thresholds):
@@ -138,6 +108,7 @@ def phase_device():
 
 
 def phase_build():
+    from metrics_tpu_torch.ops.binned import launch_plan
     from metrics_tpu_torch.ops.build import KERNELS
 
     t0 = time.perf_counter()
@@ -145,15 +116,32 @@ def phase_build():
     seconds = time.perf_counter() - t0
     print(f"[2] built binned_counts.cu for sm_90a in {seconds:.2f} s (nvcc {KERNELS.build_seconds['binned_counts']:.2f} s)")
     for line in KERNELS.build_log["binned_counts"].splitlines():
-        if "Used" in line:
+        if "Compiling entry" in line or "Used" in line:
             print("   ", line.strip())
+    print(f"    launch plan at T={K1_T}, bool weights: {launch_plan(K1_T)}")
     return seconds
+
+
+def _torch_ops(p, pos_f, neg_f, ranked):
+    """The yardstick: the kernel's algorithm as PyTorch calls (the port never calls this)."""
+    import torch
+
+    sorted_thr, perm = ranked
+    t = sorted_thr.shape[0]
+    bins = torch.searchsorted(sorted_thr, p, right=True)
+    hist = torch.stack([torch.bincount(bins, weights=pos_f, minlength=t + 1),
+                        torch.bincount(bins, weights=neg_f, minlength=t + 1)])
+    suffix = hist.flip(1).cumsum(1).flip(1)[:, 1:]
+    out = torch.empty_like(suffix)
+    out[:, perm.long()] = suffix
+    return out
 
 
 def phase_k1():
     import torch
 
-    from metrics_tpu_torch.ops.binned import _binned_counts_torch, binned_counts_cuda
+    from metrics_tpu_torch.ops.binned import _binned_counts_torch, binned_counts_cuda, rank_thresholds
+    from metrics_tpu_torch.tools.cuda_timing import device_breakdown, device_ms_cold, host_enqueue_us, ms_back_to_back
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(1)
@@ -175,18 +163,22 @@ def phase_k1():
         p, y, th = (torch.from_numpy(x).to(dev) for x in (scores, positive, thr))
         w = torch.from_numpy(weights).to(dev)
 
-        tp, fp = binned_counts_cuda(p, y, ~y, th)
+        ranked = rank_thresholds(th)
+        tp, fp = binned_counts_cuda(p, y, ~y, th, ranked=ranked)
+        utp, ufp = binned_counts_cuda(p, y, ~y, th)
         torch.cuda.synchronize()
         ref_tp, ref_fp = _binned_counts_torch(p[:, None], y[:, None], ~y[:, None], th)
         torch.cuda.synchronize()
         _check(torch.equal(tp, ref_tp[0]) and torch.equal(fp, ref_fp[0]),
                f"K1 {label} N={n} T={t}: bool-weight counts equal the plain version exactly")
+        _check(torch.equal(tp, utp) and torch.equal(fp, ufp),
+               f"K1 {label}: the ranked-grid call equals the call that ranks on the card exactly")
         o_tp, o_fp = _oracle_counts(scores, positive, thr)
         _check(np.array_equal(tp.cpu().numpy(), o_tp.astype(np.float32))
                and np.array_equal(fp.cpu().numpy(), o_fp.astype(np.float32)),
                f"K1 {label}: bool-weight counts equal the numpy sort/searchsorted oracle exactly")
 
-        ftp, ffp = binned_counts_cuda(p, w, 1 - w, th)
+        ftp, ffp = binned_counts_cuda(p, w, 1 - w, th, ranked=ranked)
         torch.cuda.synchronize()
         rtp, rfp = _binned_counts_torch(p[:, None], w[:, None], (1 - w)[:, None], th)
         torch.cuda.synchronize()
@@ -197,10 +189,25 @@ def phase_k1():
         if label == "main":
             flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
             neg = ~y
-            timings["ms"] = _cuda_ms(lambda: binned_counts_cuda(p, y, neg, th), reps=30, flush=flush)
-            timings["ms_back_to_back"] = _cuda_ms_back_to_back(lambda: binned_counts_cuda(p, y, neg, th), 100)
-            timings["plain_ms"] = _cuda_ms(
+
+            def call():
+                return binned_counts_cuda(p, y, neg, th, ranked=ranked)
+
+            timings["ms"] = device_ms_cold(call, reps=30, flush=flush)
+            timings["ms_back_to_back"] = ms_back_to_back(call, 100)
+            timings["host_enqueue_us"] = host_enqueue_us(call)
+            ops = device_breakdown(call)
+            timings["device_ops"] = ops
+            _check(len(ops) == 1 and ops[0]["per_call"] == 1 and "count_kernel" in ops[0]["name"],
+                   f"K1 with the ranked grid is one device operation per call, no fill ({ops[0]['name'][:48]}...)")
+            timings["plain_ms"] = device_ms_cold(
                 lambda: _binned_counts_torch(p[:, None], y[:, None], neg[:, None], th), reps=5, flush=flush)
+            pos_f, neg_f = y.to(torch.float32), neg.to(torch.float32)
+            yard = _torch_ops(p, pos_f, neg_f, ranked).to(torch.float32)
+            torch.cuda.synchronize()
+            _check(torch.equal(yard[0], tp) and torch.equal(yard[1], fp),
+                   "K1 main: the torch_ops yardstick computes the same counts")
+            timings["torch_ops_ms"] = device_ms_cold(lambda: _torch_ops(p, pos_f, neg_f, ranked), reps=30, flush=flush)
     bytes_moved = K1_N * (4 + 1 + 1) + 4 * K1_T + 2 * 4 * K1_T
     ops = K1_N * int(np.ceil(np.log2(K1_T + 1)))  # one comparison per binary-search step per score
     timings["bound_ms"] = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
@@ -208,7 +215,11 @@ def phase_k1():
     timings["max_abs_err"] = max_err
     print(f"[3] K1 at N={K1_N}, T={K1_T}: kernel {timings['ms']:.4f} ms (device, L2 cold, median of 30),"
           f" {timings['ms_back_to_back']:.4f} ms per call back to back (L2 warm, host enqueue included),"
-          f" plain {timings['plain_ms']:.3f} ms, bound {timings['bound_ms']:.4f} ms ({timings['bound_by']})")
+          f" host enqueue {timings['host_enqueue_us']:.2f} us per call,"
+          f" plain {timings['plain_ms']:.3f} ms, torch ops {timings['torch_ops_ms']:.4f} ms,"
+          f" bound {timings['bound_ms']:.4f} ms ({timings['bound_by']})")
+    for op in timings["device_ops"]:
+        print(f"    device op per call: {op['name']} x{op['per_call']:g}, {op['us_per_call']:.2f} us")
     return timings
 
 
@@ -285,6 +296,7 @@ def phase_paths():
         b_launches = binned_counts_cuda.launches
         b_epoch = col_b.compute()
         torch.cuda.synchronize()
+        step_kernels = _profile_step(_binned_collection(dev, dist_sync_on_step=True), b_batches[0])
     finally:
         dist.destroy_process_group()
 
@@ -294,8 +306,27 @@ def phase_paths():
     print(f"[5] path B: {B_STEPS} steps of {B_N} scores, {B_T} thresholds: median {statistics.median(b_ms):.3f} ms/step"
           f" (first step {b_ms[0]:.1f} ms); K1 launches {b_launches}")
     _check(step_launches == [2 * (i + 1) for i in range(B_STEPS)], "path B: K1 launched exactly 2 times per step")
+    _check(step_kernels.get("count_kernel", 0) == 2 and step_kernels.get("rank_thresholds", 0) == 0,
+           f"path B profiled step: 2 K1 kernels, no threshold ranking ({step_kernels})")
     _check_path_b(b_batches, b_values, b_epoch, col_b)
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches}
+
+
+def _profile_step(collection, batch):
+    """K1's device kernels in one profiled collection step, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        collection(*batch)
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in ("count_kernel", "rank_thresholds"):
+                if name in e.key:
+                    counts[name] = counts.get(name, 0) + e.count
+    return counts
 
 
 def _check_path_a(batches, values, epoch, col_gpu):
@@ -396,7 +427,10 @@ def main() -> int:
         "ms": k1["ms"],
         "kernel_ms": k1["ms"],
         "ms_back_to_back": k1["ms_back_to_back"],
+        "host_enqueue_us": k1["host_enqueue_us"],
+        "launches_per_call": sum(op["per_call"] for op in k1["device_ops"]),
         "plain_ms": k1["plain_ms"],
+        "torch_ops_ms": k1["torch_ops_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": None,

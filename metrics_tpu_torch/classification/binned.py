@@ -2,8 +2,9 @@
 
 Counterpart of ``metrics_tpu/classification/binned.py``. The threshold grid
 becomes a tensor on the metric's device, registered once at construction, so
-an update pays no host-to-device copy. On a CUDA device a binary update runs
-kernel K1 (``csrc/binned_counts.cu``).
+an update pays no host-to-device copy. It is ranked for kernel K1 when the
+metric is built and again whenever ``.to()`` moves it, never per update; on a
+CUDA device a binary update runs K1 (``csrc/binned_counts.cu``) as one launch.
 """
 from typing import Any, Callable, Optional, Tuple, Union
 
@@ -19,6 +20,7 @@ from metrics_tpu_torch.functional.classification.binned_curves import (
     _roc,
     binned_stat_curve_update,
 )
+from metrics_tpu_torch.ops.binned import rank_thresholds
 
 
 class _BinnedCurveMetric(Metric):
@@ -43,11 +45,17 @@ class _BinnedCurveMetric(Metric):
         )
         self.num_classes = num_classes
         self.register_buffer("thresholds", _as_thresholds(thresholds, self.device), persistent=False)
+        self._ranked = rank_thresholds(self.thresholds)
         num_t = self.thresholds.shape[0]
         shape = (num_t,) if num_classes is None else (num_classes, num_t)
         # per-batch float32 counts are exact below 2**24; the int64 states hold the totals
         for name in ("tp", "fp", "tn", "fn"):
             self.add_state(name, default=torch.zeros(shape, dtype=torch.int64), dist_reduce_fx="sum")
+
+    def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "_BinnedCurveMetric":
+        super()._apply(fn, *args, **kwargs)
+        self._ranked = rank_thresholds(self.thresholds)  # the grid moved: rank it where it lies now
+        return self
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         if self.num_classes is not None and preds.ndim == 1:
@@ -57,7 +65,9 @@ class _BinnedCurveMetric(Metric):
                 "Got 2d per-class predictions but `num_classes` was not set; "
                 "construct the metric with num_classes=C for multiclass/multilabel input."
             )
-        tp, fp, tn, fn = binned_stat_curve_update(preds.to(torch.float32), target, self.thresholds)
+        tp, fp, tn, fn = binned_stat_curve_update(
+            preds.to(torch.float32), target, self.thresholds, ranked=self._ranked
+        )
         self.tp = self.tp + tp.to(torch.int64)
         self.fp = self.fp + fp.to(torch.int64)
         self.tn = self.tn + tn.to(torch.int64)

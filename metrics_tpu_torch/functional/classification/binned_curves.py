@@ -31,7 +31,11 @@ def _as_thresholds(thresholds: Union[int, Tensor, list, None], device: Optional[
 
 
 def binned_stat_curve_update(
-    preds: Tensor, target: Tensor, thresholds: Tensor, impl: str = "auto"
+    preds: Tensor,
+    target: Tensor,
+    thresholds: Tensor,
+    impl: str = "auto",
+    ranked: Optional[Tuple[Tensor, Tensor]] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Per-threshold TP/FP/TN/FN counts for binary ``(N,)`` or per-class ``(N, C)`` inputs.
 
@@ -40,7 +44,8 @@ def binned_stat_curve_update(
     op: a binary batch on a CUDA device runs kernel K1
     (``csrc/binned_counts.cu``, via ``ops/binned.py:binned_stat_counts``); a
     CPU batch, per-class inputs and empty batches run the plain PyTorch
-    version. ``impl`` forwards to ``binned_stat_counts``.
+    version. ``impl`` and ``ranked`` (the grid from ``rank_thresholds``,
+    kept by the caller) forward to ``binned_stat_counts``.
     """
     if preds.ndim == 1:
         preds_c, target_c = preds[:, None], target[:, None]
@@ -50,7 +55,7 @@ def binned_stat_curve_update(
     # bool 0/1 columns take the kernel's exact integer route
     pos = target_c > 0  # (N, C)
     neg = ~pos
-    tp, fp = binned_stat_counts(preds_c, pos, neg, thresholds, impl=impl)  # (C, T)
+    tp, fp = binned_stat_counts(preds_c, pos, neg, thresholds, impl=impl, ranked=ranked)  # (C, T)
     n_pos = torch.sum(pos, dim=0).to(preds_c.dtype)[:, None]  # (C, 1)
     n_neg = torch.sum(neg, dim=0).to(preds_c.dtype)[:, None]
     fn = n_pos - tp

@@ -10,7 +10,9 @@ curve family reduces to per-threshold TP/FP counts:
   (``csrc/binned_counts.cu``, bucketize + histogram + suffix sum) that takes
   the place of the Pallas kernel ``_binned_counts_pallas_binary``. It takes
   CUDA tensors only, launches on the current stream, never synchronises, and
-  counts its launches in ``binned_counts_cuda.launches``.
+  counts its launches in ``binned_counts_cuda.launches``. Given the grid
+  ranked by :func:`rank_thresholds` (the binned metrics rank theirs once), a
+  call is one kernel launch and allocates only its output.
 * :func:`_binned_counts_torch` is the plain version: the comparison matrix
   contracted against the weights, chunked over N so the ``(T, chunk, C)``
   intermediate stays bounded. It accumulates in float64, so 0/1 weights
@@ -22,7 +24,7 @@ and ``N == 0`` take the plain version on either device, as the JAX package
 sends them to XLA outside its kernel.
 """
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -32,29 +34,61 @@ from metrics_tpu_torch.ops.build import KERNELS
 # elements of the (T, chunk, C) comparison matrix the plain version holds at once
 _PLAIN_CHUNK_ELEMENTS = 1 << 26
 
-_WEIGHT_KINDS = {torch.bool: (0, torch.int32), torch.float32: (1, torch.float64)}
+_WEIGHT_KINDS = {torch.bool: 0, torch.float32: 1}
+
+# zeroed kernel workspaces, one per (device index, stream): the kernel leaves its workspace
+# zeroed, so calls queued on one stream reuse it in order, and calls on two streams at once never
+# share one. Layout: the accumulators (two uint32 per bin for bool weights, two float64 for float
+# weights; T + 1 bins), then a 16-byte ticket.
+_WORKSPACES: Dict[Tuple[int, int], Tensor] = {}
 
 
 def _library() -> ctypes.CDLL:
     lib = KERNELS.load("binned_counts")
-    fn = lib.mtt_binned_counts
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_longlong, p, ctypes.c_int, ctypes.c_int, p, p, p, p, p, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
+    if lib.mtt_binned_counts.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mtt_binned_counts.argtypes = [p, p, p, ctypes.c_longlong, p, p, p, i, i, i, p, p, i, p]
+        lib.mtt_binned_counts.restype = i
+        lib.mtt_binned_counts_plan.argtypes = [i, i, i, p]
+        lib.mtt_binned_counts_plan.restype = i
     return lib
 
 
-def binned_counts_cuda(preds: Tensor, pos: Tensor, neg: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor]:
+def _workspace(device: int, stream: int, t: int, kind: int) -> Tensor:
+    nbytes = (1 + kind) * (t + 1) * 8 + 16
+    ws = _WORKSPACES.get((device, stream))
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=torch.device("cuda", device))  # once per stream and size
+        _WORKSPACES[(device, stream)] = ws
+    return ws
+
+
+def launch_plan(t: int, kind: int = 0, device: int = 0) -> Dict[str, int]:
+    """The kernel's launch plan for ``t`` thresholds (kind 0: bool weights, 1: float32)
+    on a CUDA device: route, buckets, shared memory per block and resident blocks."""
+    out = (ctypes.c_longlong * 4)()
+    err = _library().mtt_binned_counts_plan(t, kind, device, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"binned_counts launch plan failed with CUDA error {err}")
+    return {"shared_memory_route": out[0], "buckets": out[1], "smem_bytes": out[2], "resident_blocks": out[3]}
+
+
+def binned_counts_cuda(
+    preds: Tensor, pos: Tensor, neg: Tensor, thresholds: Tensor, ranked: Optional[Tuple[Tensor, Tensor]] = None
+) -> Tuple[Tensor, Tensor]:
     """Kernel K1: ``(N,)`` scores, ``(N,)`` weights and ``(T,)`` thresholds (any
     order, duplicates allowed) -> float32 ``(T,)`` TP and FP counts.
 
     ``preds`` and ``thresholds`` are contiguous float32; ``pos`` and ``neg``
-    are both contiguous bool (exact integer counts) or both float32. All lie
-    on one CUDA device. Raises on anything else, and when the launch fails.
+    are both contiguous bool (exact integer counts, ``N < 2**32``) or both
+    float32. ``ranked`` is ``rank_thresholds(thresholds)``, computed once per
+    grid: with it a call is one kernel launch, without it the call ranks the
+    grid on the card first. All lie on one CUDA device. Raises on anything
+    else, and when the launch fails.
     """
-    tensors = (preds, pos, neg, thresholds)
-    if not all(x.is_cuda for x in tensors) or len({x.device for x in tensors}) != 1:
+    tensors = (preds, pos, neg, thresholds) if ranked is None else (preds, pos, neg, thresholds, *ranked)
+    devices = {x.get_device() for x in tensors}  # -1 for a CPU tensor
+    if len(devices) != 1 or -1 in devices or not preds.is_cuda:
         raise ValueError("binned_counts_cuda takes CUDA tensors on one device")
     if not all(x.ndim == 1 and x.is_contiguous() for x in tensors):
         raise ValueError("binned_counts_cuda takes contiguous 1-d tensors")
@@ -65,28 +99,45 @@ def binned_counts_cuda(preds: Tensor, pos: Tensor, neg: Tensor, thresholds: Tens
     n, t = preds.shape[0], thresholds.shape[0]
     if pos.shape[0] != n or neg.shape[0] != n:
         raise ValueError("scores and weights must have the same length")
-    out = torch.zeros((2, t), dtype=torch.float32, device=preds.device)
+    if ranked is not None and (
+        ranked[0].dtype != torch.float32 or ranked[1].dtype != torch.int32
+        or ranked[0].shape[0] != t or ranked[1].shape[0] != t
+    ):
+        raise ValueError("ranked must be rank_thresholds(thresholds): float32 and int32 of the grid's length")
+    kind = _WEIGHT_KINDS[pos.dtype]
+    if kind == 0 and n >= 1 << 32:
+        raise ValueError("bool weights count in 32 bits: at most 2**32 - 1 samples a call")
+    device = devices.pop()
     if n == 0 or t == 0:
-        return out[0], out[1]
+        return torch.zeros((2, t), dtype=torch.float32, device=preds.device).unbind(0)
 
-    kind, acc_dtype = _WEIGHT_KINDS[pos.dtype]
-    sorted_thr = torch.empty(t, dtype=torch.float32, device=preds.device)
-    perm = torch.empty(t, dtype=torch.int32, device=preds.device)
-    hist = torch.zeros(2 * (t + 1), dtype=acc_dtype, device=preds.device)
+    out = torch.empty((2, t), dtype=torch.float32, device=preds.device)  # the kernel writes every element
+    if ranked is None:
+        sorted_thr = torch.empty(t, dtype=torch.float32, device=preds.device)
+        perm = torch.empty(t, dtype=torch.int32, device=preds.device)
+    else:
+        sorted_thr, perm = ranked
     lib = _library()
-    stream = torch.cuda.current_stream(preds.device).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(device)  # the raw handle, without a Stream object
+    ws = _workspace(device, stream, t, kind)
     err = lib.mtt_binned_counts(
-        preds.data_ptr(), pos.data_ptr(), neg.data_ptr(), n, thresholds.data_ptr(), t, kind,
-        sorted_thr.data_ptr(), perm.data_ptr(), hist.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-        preds.device.index, stream,
+        preds.data_ptr(), pos.data_ptr(), neg.data_ptr(), n, thresholds.data_ptr(), sorted_thr.data_ptr(),
+        perm.data_ptr(), int(ranked is None), t, kind, ws.data_ptr(), out.data_ptr(), device, stream,
     )
     if err != 0:
         raise RuntimeError(f"binned_counts kernel launch failed with CUDA error {err}")
     binned_counts_cuda.launches += 1
-    return out[0], out[1]
+    return out.unbind(0)
 
 
 binned_counts_cuda.launches = 0
+
+
+def rank_thresholds(thresholds: Tensor) -> Tuple[Tensor, Tensor]:
+    """The grid ranked for the kernel: float32 ``sorted`` ascending with NaN last
+    and ties in index order, and int32 ``perm`` with ``sorted == thresholds[perm]``."""
+    sorted_thr, perm = torch.sort(thresholds.to(torch.float32), stable=True)
+    return sorted_thr, perm.to(torch.int32)
 
 
 def _binned_counts_torch(preds_c: Tensor, pos: Tensor, neg: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor]:
@@ -106,7 +157,12 @@ def _binned_counts_torch(preds_c: Tensor, pos: Tensor, neg: Tensor, thresholds: 
 
 
 def binned_stat_counts(
-    preds_c: Tensor, pos: Tensor, neg: Tensor, thresholds: Tensor, impl: str = "auto"
+    preds_c: Tensor,
+    pos: Tensor,
+    neg: Tensor,
+    thresholds: Tensor,
+    impl: str = "auto",
+    ranked: Optional[Tuple[Tensor, Tensor]] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Per-threshold TP/FP counts: ``tp[c, t] = sum_n pos[n, c] * (preds[n, c] >= thr[t])``.
 
@@ -118,6 +174,9 @@ def binned_stat_counts(
         impl: ``"auto"`` (the kernel for a CUDA tensor with ``C == 1`` and
             ``N > 0``, else the plain version), ``"torch"`` (the plain
             version), or ``"cuda"`` (the kernel; raises for a CPU tensor).
+        ranked: ``rank_thresholds(thresholds)`` where the caller keeps it per
+            grid; the kernel then skips its ranking launch. The plain
+            version does not need it.
 
     Returns:
         ``(tp, fp)`` of shape ``(C, T)``, in ``preds_c.dtype``.
@@ -135,5 +194,5 @@ def binned_stat_counts(
     else:
         p, q = pos[:, 0].to(torch.float32).contiguous(), neg[:, 0].to(torch.float32).contiguous()
     thr = thresholds.to(device=preds_c.device, dtype=torch.float32).contiguous()
-    tp, fp = binned_counts_cuda(preds_c[:, 0].to(torch.float32).contiguous(), p, q, thr)
+    tp, fp = binned_counts_cuda(preds_c[:, 0].to(torch.float32).contiguous(), p, q, thr, ranked=ranked)
     return tp[None, :].to(preds_c.dtype), fp[None, :].to(preds_c.dtype)
