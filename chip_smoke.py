@@ -14,12 +14,12 @@ Phases, in order; each raises on failure and none is caught:
    (sorted scores + ``searchsorted``) at N = 4,194,304, T = 2,048 and at
    N = 4,194,303, T = 2,047 with shuffled, duplicate and infinite thresholds
    and NaN / +-inf scores, with the grid ranked once (one launch a call) and
-   unranked (the call ranks it on the card). Bool weights must match exactly,
-   float weights to rtol 1e-5. Times the kernel and the plain version with
-   CUDA events, the host enqueue per call with the card held busy, and the
-   yardstick ``torch_ops_ms`` (``searchsorted`` + weighted ``bincount`` +
-   reverse ``cumsum``, which the port never calls); ``torch.profiler`` must
-   show one device operation per call and no fill.
+   unranked (the wrapper ranks it on the card with ``torch.sort``). Bool
+   weights must match exactly, float weights to rtol 1e-5. Times the kernel
+   and the plain version with CUDA events, the host enqueue per call with the
+   card held busy, and the yardstick ``torch_ops_ms`` (``searchsorted`` +
+   weighted ``bincount`` + reverse ``cumsum``, which the port never calls);
+   ``torch.profiler`` must show one device operation per call and no fill.
 4. Path A, the main path: ``MetricCollection([Accuracy, F1, Precision,
    Recall])`` (macro, C = 1,000, ``dist_sync_on_step``) inside a one-rank NCCL
    process group, 20 steps of 4,096 x 1,000 probabilities. Per-step values
@@ -28,7 +28,8 @@ Phases, in order; each raises on failure and none is caught:
 5. Path B: ``MetricCollection([BinnedAUROC, BinnedAveragePrecision])`` with
    2,048 thresholds and ``dist_sync_on_step`` in the same group, 10 steps of
    4,194,304 binary scores. K1's launch count must rise by exactly 2 per step,
-   and a profiled extra step must show 2 K1 kernels and no threshold ranking.
+   and a profiled extra step must show 2 K1 kernels and no sort (the
+   thresholds are ranked once per grid, not per step).
    Counts are checked exactly against the numpy oracle and the plain version
    on the card; AUROC / AP to rtol 1e-5.
 6. The ``kernels`` JSON line, then the device JSON as the last line.
@@ -306,14 +307,14 @@ def phase_paths():
     print(f"[5] path B: {B_STEPS} steps of {B_N} scores, {B_T} thresholds: median {statistics.median(b_ms):.3f} ms/step"
           f" (first step {b_ms[0]:.1f} ms); K1 launches {b_launches}")
     _check(step_launches == [2 * (i + 1) for i in range(B_STEPS)], "path B: K1 launched exactly 2 times per step")
-    _check(step_kernels.get("count_kernel", 0) == 2 and step_kernels.get("rank_thresholds", 0) == 0,
-           f"path B profiled step: 2 K1 kernels, no threshold ranking ({step_kernels})")
+    _check(step_kernels.get("count_kernel", 0) == 2 and step_kernels.get("sort", 0) == 0,
+           f"path B profiled step: 2 K1 kernels, no threshold ranking (no sort kernel) ({step_kernels})")
     _check_path_b(b_batches, b_values, b_epoch, col_b)
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches}
 
 
 def _profile_step(collection, batch):
-    """K1's device kernels in one profiled collection step, by name."""
+    """K1's kernels and the sort kernels (a threshold ranking) in one profiled collection step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -323,8 +324,8 @@ def _profile_step(collection, batch):
     counts = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            for name in ("count_kernel", "rank_thresholds"):
-                if name in e.key:
+            for name in ("count_kernel", "sort"):
+                if name in e.key.lower():
                     counts[name] = counts.get(name, 0) + e.count
     return counts
 

@@ -15,8 +15,8 @@
 //
 // The design removes the T factor (bucketize, histogram, suffix sum) in ONE launch per call:
 //   * The grid comes ranked: `sorted` ascending with NaN last and `perm` with
-//     sorted[k] == thr[perm[k]]. The binned metrics rank it once per grid; a call without the
-//     ranking runs rank_thresholds first (a second launch).
+//     sorted[k] == thr[perm[k]]. The binned metrics rank it once per grid (torch.sort, stable);
+//     the wrapper ranks it for a call that does not pass it.
 //   * Each block stages the sorted grid in shared memory and builds a bucket table over the
 //     finite grid's range: bucket(p) = floor((p - lo) * m / (hi - lo)) clamped to [0, m),
 //     a monotone function of p, and tab[b] = #{k : bucket(s[k]) < b}. A score's bin
@@ -37,7 +37,8 @@
 //   * The blocks of a 2-block cluster sum their histograms through distributed shared memory,
 //     each block half of the bins, and only nonzero sums reach the global accumulator:
 //     2 * (T + 1) atomics per cluster in place of 2 * (T + 1) per block.
-//   * The last block to finish (a __threadfence + atomic ticket) takes the suffix sums,
+//   * The last block to finish (a __threadfence + atomic ticket) stages the accumulator past L1
+//     (the other SMs' atomics wrote it in L2) and `perm`, takes the suffix sums,
 //     writes count_sorted[k] = sum of bins k+1..T through `perm` as float32, and zeroes the
 //     accumulator and the ticket, so the next call on the stream finds them zeroed. The
 //     output is written whole: no fill runs before the kernel.
@@ -67,7 +68,6 @@ constexpr int kMinBlocksPerSm = 1;
 // Clusters of 2 blocks: the card's GPCs place one on every pair of SMs, where larger clusters
 // leave SMs of some GPCs idle.
 constexpr int kCluster = 2;
-constexpr int kRankThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 // ---------------------------------------------------------------------------------------------
@@ -109,35 +109,6 @@ struct Weights<float> {  // float32 weights, float64 accumulation
     if (wn != 0.f) atomicAdd(h + nb + bin, static_cast<double>(wn));
   }
 };
-
-// ---------------------------------------------------------------------------------------------
-// threshold ranking, for a call that does not pass the ranked grid
-
-// total order on (value, index): numbers ascending, NaN after every number, ties by index
-__device__ __forceinline__ bool ordered_before(float a, int ia, float b, int ib) {
-  const bool a_nan = isnan(a), b_nan = isnan(b);
-  if (a_nan || b_nan) return (a_nan && b_nan) ? ia < ib : b_nan;
-  return a < b || (a == b && ia < ib);
-}
-
-// one block per threshold: its rank in the total order is its sorted position
-__global__ void __launch_bounds__(kRankThreads)
-rank_thresholds(const float* __restrict__ thr, int t, float* __restrict__ sorted, int* __restrict__ perm) {
-  const int i = blockIdx.x;
-  const float v = thr[i];
-  unsigned int before = 0;
-  for (int j = threadIdx.x; j < t; j += kRankThreads) before += ordered_before(thr[j], j, v, i) ? 1u : 0u;
-  for (int off = 16; off > 0; off >>= 1) before += __shfl_down_sync(0xffffffffu, before, off);
-  __shared__ unsigned int warp_sums[kRankThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = before;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned int rank = 0;
-    for (int w = 0; w < kRankThreads / 32; ++w) rank += warp_sums[w];
-    sorted[rank] = v;
-    perm[rank] = i;
-  }
-}
 
 // ---------------------------------------------------------------------------------------------
 // bucketing
@@ -212,11 +183,17 @@ __device__ __forceinline__ void count4(const Grid& g, typename WT::Acc* h, int n
 // ---------------------------------------------------------------------------------------------
 // the last block: suffix sums, scatter through perm, zero the accumulator
 
-// one 4- or 8-byte asynchronous copy from global to shared memory (cp.async, no register round trip)
+// asynchronous copies from global to shared memory (cp.async, no register round trip): 4 or 8 bytes
+// through L1 (.ca), or 16 bytes from L2 alone (.cg) for data other SMs wrote in this launch
 template <typename V>
 __device__ __forceinline__ void copy_async(V* smem_dst, const V* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(gmem_src), "n"(sizeof(V)) : "memory");
+}
+
+__device__ __forceinline__ void copy_async_l2(uint4* smem_dst, const uint4* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src) : "memory");
 }
 
 // out[perm[k]] = the sum of the tp bins k+1..t, and out[t + perm[k]] the same of the fp bins; the
@@ -442,12 +419,23 @@ count_kernel(const float* __restrict__ preds, const W* __restrict__ pos, const W
   __threadfence();
   if constexpr (kSmem) {
     // stage the accumulators and perm in shared memory with asynchronous copies, all in flight at
-    // once, so the scan waits on one round trip to L2; then zero the accumulators for the next call
+    // once, so the scan waits on one round trip to L2; then zero the accumulators for the next call.
+    // The accumulators come from L2 alone (16-byte .cg copies, the last bytes with ld.global.cg):
+    // other SMs' atomics wrote them, and no L1 line of this SM may serve them. Each thread zeroes
+    // only what it copied itself, once its own copies have landed.
     int* sperm = reinterpret_cast<int*>(s);
-    for (int k = threadIdx.x; k < WT::kSlots * nb; k += kThreads) copy_async(h + k, acc + k);
+    const int slots = WT::kSlots * nb;
+    const int chunks = static_cast<int>(slots * sizeof(Acc) / 16);
+    const int tail = chunks * 16 / static_cast<int>(sizeof(Acc));
+    uint4* acc16 = reinterpret_cast<uint4*>(acc);
+    for (int k = threadIdx.x; k < chunks; k += kThreads) copy_async_l2(reinterpret_cast<uint4*>(h) + k, acc16 + k);
     for (int k = threadIdx.x; k < t; k += kThreads) copy_async(sperm + k, perm + k);
+    for (int k = tail + threadIdx.x; k < slots; k += kThreads) {
+      h[k] = __ldcg(acc + k);
+      acc[k] = Acc(0);
+    }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
-    for (int k = threadIdx.x; k < WT::kSlots * nb; k += kThreads) acc[k] = Acc(0);
+    for (int k = threadIdx.x; k < chunks; k += kThreads) acc16[k] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
     finish<false>(h, t, sperm, out);
   } else {
@@ -544,17 +532,12 @@ cudaError_t get_plan(int device, int kind, int t, Plan* out) {
 }
 
 template <typename W>
-cudaError_t launch(const float* preds, const void* pos, const void* neg, long long n, const float* thr,
-                   float* sorted, int* perm, int rank, int t, int kind, void* workspace, float* out, int device,
-                   cudaStream_t stream) {
+cudaError_t launch(const float* preds, const void* pos, const void* neg, long long n, const float* sorted,
+                   const int* perm, int t, int kind, void* workspace, float* out, int device, cudaStream_t stream) {
   using Acc = typename Weights<W>::Acc;
   Plan p;
   cudaError_t err = get_plan<W>(device, kind, t, &p);
   if (err != cudaSuccess) return err;
-  if (rank) {
-    rank_thresholds<<<t, kRankThreads, 0, stream>>>(thr, t, sorted, perm);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
   Acc* acc = static_cast<Acc*>(workspace);
   unsigned int* ticket =
       reinterpret_cast<unsigned int*>(static_cast<char*>(workspace) + Weights<W>::kSlots * (t + 1) * sizeof(Acc));
@@ -580,11 +563,9 @@ cudaError_t launch(const float* preds, const void* pos, const void* neg, long lo
   const W* pw = static_cast<const W*>(pos);
   const W* nw = static_cast<const W*>(neg);
   if (p.smem_route)
-    err = cudaLaunchKernelEx(&cfg, count_kernel<W, true>, preds, pw, nw, n, static_cast<const float*>(sorted),
-                             static_cast<const int*>(perm), t, p.m, acc, ticket, out);
+    err = cudaLaunchKernelEx(&cfg, count_kernel<W, true>, preds, pw, nw, n, sorted, perm, t, p.m, acc, ticket, out);
   else
-    err = cudaLaunchKernelEx(&cfg, count_kernel<W, false>, preds, pw, nw, n, static_cast<const float*>(sorted),
-                             static_cast<const int*>(perm), t, p.m, acc, ticket, out);
+    err = cudaLaunchKernelEx(&cfg, count_kernel<W, false>, preds, pw, nw, n, sorted, perm, t, p.m, acc, ticket, out);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -609,23 +590,23 @@ int mtt_binned_counts_plan(int t, int weight_kind, int device, long long* out) {
 }
 
 // weight_kind 0: pos/neg are 0/1 bytes (torch.bool), n < 2^32. weight_kind 1: pos/neg are float32.
-// rank 0: sorted (t float32, ascending, NaN last) and perm (t int32, sorted[k] == thr[perm[k]]) are
-// the ranked grid and thr is unused. rank 1: thr is the grid and sorted/perm are scratch the call
-// ranks it into. workspace: (weight_kind + 1) * (t + 1) * 8 bytes of accumulators, then a 16-byte
-// ticket, zeroed by the caller once; every launch leaves it zeroed, and one workspace serves one
-// stream at a time. out: 2 * t float32, tp then fp. Requires n > 0 and t > 0.
-int mtt_binned_counts(const float* preds, const void* pos, const void* neg, long long n, const float* thr,
-                      float* sorted, int* perm, int rank, int t, int weight_kind, void* workspace, float* out,
-                      int device, void* stream) {
+// sorted (t float32, ascending, NaN last) and perm (t int32, sorted[k] == thr[perm[k]]) are the
+// ranked grid thr. workspace: 16-byte aligned, (weight_kind + 1) * (t + 1) * 8 bytes of
+// accumulators, then a 16-byte ticket, zeroed by the caller once; every launch leaves it zeroed,
+// and one workspace serves one stream at a time. out: 2 * t float32, tp then fp, indexed like thr.
+// Requires n > 0 and t > 0.
+int mtt_binned_counts(const float* preds, const void* pos, const void* neg, long long n, const float* sorted,
+                      const int* perm, int t, int weight_kind, void* workspace, float* out, int device,
+                      void* stream) {
   int previous = -1;
   cudaError_t err = cudaGetDevice(&previous);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (previous != device && (err = cudaSetDevice(device)) != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (weight_kind == 0)
-    err = launch<uint8_t>(preds, pos, neg, n, thr, sorted, perm, rank, t, 0, workspace, out, device, s);
+    err = launch<uint8_t>(preds, pos, neg, n, sorted, perm, t, 0, workspace, out, device, s);
   else if (weight_kind == 1)
-    err = launch<float>(preds, pos, neg, n, thr, sorted, perm, rank, t, 1, workspace, out, device, s);
+    err = launch<float>(preds, pos, neg, n, sorted, perm, t, 1, workspace, out, device, s);
   else
     err = cudaErrorInvalidValue;
   if (previous != device) {

@@ -10,9 +10,10 @@ curve family reduces to per-threshold TP/FP counts:
   (``csrc/binned_counts.cu``, bucketize + histogram + suffix sum) that takes
   the place of the Pallas kernel ``_binned_counts_pallas_binary``. It takes
   CUDA tensors only, launches on the current stream, never synchronises, and
-  counts its launches in ``binned_counts_cuda.launches``. Given the grid
-  ranked by :func:`rank_thresholds` (the binned metrics rank theirs once), a
-  call is one kernel launch and allocates only its output.
+  counts its launches in ``binned_counts_cuda.launches``. It takes the grid
+  ranked by :func:`rank_thresholds` (the binned metrics rank theirs once, and
+  a call without it ranks first); a call is then one kernel launch and
+  allocates only its output.
 * :func:`_binned_counts_torch` is the plain version: the comparison matrix
   contracted against the weights, chunked over N so the ``(T, chunk, C)``
   intermediate stays bounded. It accumulates in float64, so 0/1 weights
@@ -47,7 +48,7 @@ def _library() -> ctypes.CDLL:
     lib = KERNELS.load("binned_counts")
     if lib.mtt_binned_counts.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mtt_binned_counts.argtypes = [p, p, p, ctypes.c_longlong, p, p, p, i, i, i, p, p, i, p]
+        lib.mtt_binned_counts.argtypes = [p, p, p, ctypes.c_longlong, p, p, i, i, p, p, i, p]
         lib.mtt_binned_counts.restype = i
         lib.mtt_binned_counts_plan.argtypes = [i, i, i, p]
         lib.mtt_binned_counts_plan.restype = i
@@ -82,9 +83,9 @@ def binned_counts_cuda(
     ``preds`` and ``thresholds`` are contiguous float32; ``pos`` and ``neg``
     are both contiguous bool (exact integer counts, ``N < 2**32``) or both
     float32. ``ranked`` is ``rank_thresholds(thresholds)``, computed once per
-    grid: with it a call is one kernel launch, without it the call ranks the
-    grid on the card first. All lie on one CUDA device. Raises on anything
-    else, and when the launch fails.
+    grid; a call without it ranks the grid first (``torch.sort`` on the card).
+    All lie on one CUDA device. Raises on anything else, and when the launch
+    fails.
     """
     tensors = (preds, pos, neg, thresholds) if ranked is None else (preds, pos, neg, thresholds, *ranked)
     devices = {x.get_device() for x in tensors}  # -1 for a CPU tensor
@@ -111,18 +112,14 @@ def binned_counts_cuda(
     if n == 0 or t == 0:
         return torch.zeros((2, t), dtype=torch.float32, device=preds.device).unbind(0)
 
+    sorted_thr, perm = rank_thresholds(thresholds) if ranked is None else ranked
     out = torch.empty((2, t), dtype=torch.float32, device=preds.device)  # the kernel writes every element
-    if ranked is None:
-        sorted_thr = torch.empty(t, dtype=torch.float32, device=preds.device)
-        perm = torch.empty(t, dtype=torch.int32, device=preds.device)
-    else:
-        sorted_thr, perm = ranked
     lib = _library()
     stream = torch._C._cuda_getCurrentRawStream(device)  # the raw handle, without a Stream object
     ws = _workspace(device, stream, t, kind)
     err = lib.mtt_binned_counts(
-        preds.data_ptr(), pos.data_ptr(), neg.data_ptr(), n, thresholds.data_ptr(), sorted_thr.data_ptr(),
-        perm.data_ptr(), int(ranked is None), t, kind, ws.data_ptr(), out.data_ptr(), device, stream,
+        preds.data_ptr(), pos.data_ptr(), neg.data_ptr(), n, sorted_thr.data_ptr(), perm.data_ptr(), t, kind,
+        ws.data_ptr(), out.data_ptr(), device, stream,
     )
     if err != 0:
         raise RuntimeError(f"binned_counts kernel launch failed with CUDA error {err}")
@@ -175,8 +172,8 @@ def binned_stat_counts(
             ``N > 0``, else the plain version), ``"torch"`` (the plain
             version), or ``"cuda"`` (the kernel; raises for a CPU tensor).
         ranked: ``rank_thresholds(thresholds)`` where the caller keeps it per
-            grid; the kernel then skips its ranking launch. The plain
-            version does not need it.
+            grid; the kernel's wrapper then does not rank the grid. The
+            plain version does not need it.
 
     Returns:
         ``(tp, fp)`` of shape ``(C, T)``, in ``preds_c.dtype``.

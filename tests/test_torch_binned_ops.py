@@ -341,12 +341,3 @@ def test_binned_metrics_pass_the_ranked_grid_and_rerank_after_to(monkeypatch):
     m.update(preds, target)
     assert seen[2] is not seen[0] and [x.numpy().tobytes() for x in seen[2]] == want
     assert seen[2][0].device == m.thresholds.device
-
-
-def test_phase_tool_edits_apply_to_the_kernel_source():
-    """``tools/k1_phases.py`` instruments copies of the CUDA source by text edits; each edit
-    must still find its text exactly once in the committed source."""
-    from metrics_tpu_torch.tools.k1_phases import EDITS, edited_source
-
-    for name in EDITS:
-        assert "count_kernel" in edited_source(name)
