@@ -32,7 +32,24 @@ Phases, in order; each raises on failure and none is caught:
    thresholds are ranked once per grid, not per step).
    Counts are checked exactly against the numpy oracle and the plain version
    on the card; AUROC / AP to rtol 1e-5.
-6. The ``kernels`` JSON line, then the device JSON as the last line.
+   Path A's epoch ``compute()`` is one ``all_reduce`` per compute group
+   (2: Accuracy alone, F1 / Precision / Recall together), and a
+   ``CompositionalMetric`` ``(F1 + Precision) / 2`` fed path A's batches
+   equals the arithmetic of its parts on the card.
+6. Path C, the exact curves: ``MetricCollection([AUROC, AveragePrecision])``
+   (binary, ``pos_label=1``, no ``dist_sync_on_step``) in the same group,
+   3 steps of 4,194,304 float32 scores (about 10% positives, tied scores,
+   made by a seeded numpy generator), once with list states and once with
+   ``capacity=16,777,216`` (PaddedBuffer states). The epoch syncs at
+   ``compute()`` through the cat-state gather. Per-step and epoch values of
+   both modes are held against a numpy float64 oracle (rank-based AUROC with
+   ties counted half, AP as the step integral over the distinct thresholds)
+   to rtol 1e-5, and the two modes against each other to the same tolerance.
+   A ``ROC`` of the first batch gives exactly the oracle's distinct
+   thresholds, fpr / tpr to rtol 1e-6. Prints forward ms per step, epoch
+   ``compute()`` ms, the collective calls of the epoch sync and the sort's
+   share of a profiled epoch compute. Path C runs no hand-written kernel.
+7. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -52,6 +69,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor float32 peak, NVIDIA data sheet
 K1_N, K1_T = 4_194_304, 2_048
 A_STEPS, A_BATCH, A_CLASSES = 20, 4_096, 1_000
 B_STEPS, B_N, B_T = 10, 4_194_304, 2_048
+C_STEPS, C_N, C_CAPACITY = 3, 4_194_304, 16_777_216
+RTOL_CURVE = 1e-6  # ROC points against the float64 oracle: one float32 division each
 RTOL_FLOAT = 1e-5  # float-weight counts and binned AUROC / AP: sums in another order
 RTOL_CLASS = 1e-6  # classification values, card against CPU: a mean in another order
 RTOL_ORACLE = 1e-5  # float32 values against the float64 numpy oracle
@@ -224,7 +243,7 @@ def phase_k1():
     return timings
 
 
-def _main_collection(device, **kw):
+def _main_collection(device, compute_groups=True, **kw):
     import metrics_tpu_torch as pt
 
     return pt.MetricCollection([
@@ -232,7 +251,70 @@ def _main_collection(device, **kw):
         pt.F1(num_classes=A_CLASSES, average="macro", device=device, **kw),
         pt.Precision(num_classes=A_CLASSES, average="macro", device=device, **kw),
         pt.Recall(num_classes=A_CLASSES, average="macro", device=device, **kw),
-    ])
+    ], compute_groups=compute_groups)
+
+
+class _CountCollectives:
+    """Counts ``torch.distributed`` all_reduce / all_gather calls while active."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = {"all_reduce": 0, "all_gather": 0}
+        self._real = {name: getattr(dist, name) for name in self.counts}
+        for name, fn in self._real.items():
+            setattr(dist, name, self._counting(name, fn))
+        return self.counts
+
+    def _counting(self, name, fn):
+        def call(*args, **kwargs):
+            self.counts[name] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._real.items():
+            setattr(dist, name, fn)
+
+
+def _epoch_collectives(collection, batches):
+    """The collective calls and the values of one epoch ``compute()`` after ``batches``."""
+    for batch in batches:
+        collection.update(*batch)
+    with _CountCollectives() as counts:
+        values = collection.compute()
+    return counts, values
+
+
+def _check_epoch_values(batches, values):
+    """Epoch values on the card equal a CPU run's (outside the process group: a CPU metric cannot use NCCL)."""
+    cpu = _main_collection("cpu")
+    for preds, target in batches:
+        cpu.update(preds.cpu(), target.cpu())
+    for k, v in cpu.compute().items():
+        if not np.isclose(values[k].item(), v.item(), rtol=RTOL_CLASS, atol=0):
+            raise AssertionError(f"path A ungrouped epoch {k}: card {values[k].item()} vs CPU {v.item()}")
+
+
+def _check_composition(device, batches):
+    """``(F1 + Precision) / 2`` per step and at the epoch equals the arithmetic of its children exactly."""
+    import metrics_tpu_torch as pt
+    import torch
+
+    f1 = pt.F1(num_classes=A_CLASSES, average="macro", device=device)
+    prec = pt.Precision(num_classes=A_CLASSES, average="macro", device=device)
+    composed = (f1 + prec) / 2
+    for preds, target in batches:
+        value = composed(preds, target)
+        if not torch.equal(value, (f1._forward_cache + prec._forward_cache) / 2):
+            raise AssertionError(f"path A composed step value {value.item()} differs from its parts")
+    epoch = composed.compute()
+    if not torch.equal(epoch, (f1.compute() + prec.compute()) / 2):
+        raise AssertionError(f"path A composed epoch value {epoch.item()} differs from its parts")
+    return epoch.item()
 
 
 def _binned_collection(device, **kw):
@@ -242,21 +324,6 @@ def _binned_collection(device, **kw):
         pt.BinnedAUROC(thresholds=B_T, device=device, **kw),
         pt.BinnedAveragePrecision(thresholds=B_T, device=device, **kw),
     ])
-
-
-def _run_steps(collection, batches, on_step=None):
-    """Per-step values (tensors), per-step milliseconds (host clock, synchronized)."""
-    import torch
-
-    values, ms = [], []
-    for i, (preds, target) in enumerate(batches):
-        t0 = time.perf_counter()
-        values.append(collection(preds, target))
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        if on_step is not None:
-            on_step(i)
-    return values, ms
 
 
 def phase_paths():
@@ -288,7 +355,8 @@ def phase_paths():
         binned_counts_cuda.launches = 0
         a_values, a_ms = _run_steps(col_a, a_batches)
         a_launches = binned_counts_cuda.launches
-        a_epoch = col_a.compute()
+        with _CountCollectives() as a_epoch_calls:
+            a_epoch = col_a.compute()
 
         col_b = _binned_collection(dev, dist_sync_on_step=True)
         step_launches = []
@@ -298,19 +366,31 @@ def phase_paths():
         b_epoch = col_b.compute()
         torch.cuda.synchronize()
         step_kernels = _profile_step(_binned_collection(dev, dist_sync_on_step=True), b_batches[0])
+
+        a_ungrouped_calls, a_ungrouped = _epoch_collectives(_main_collection(dev, compute_groups=False), a_batches[:2])
+        composed = _check_composition(dev, a_batches[:5])
+        path_c = run_path_c(dev)
     finally:
         dist.destroy_process_group()
 
     print(f"[4] path A: {A_STEPS} steps of {A_BATCH} x {A_CLASSES}: median {statistics.median(a_ms):.3f} ms/step"
           f" (first step {a_ms[0]:.1f} ms); K1 launches {a_launches}")
     _check_path_a(a_batches, a_values, a_epoch, col_a)
+    _check_epoch_values(a_batches[:2], a_ungrouped)
+    _check(a_epoch_calls["all_reduce"] == 2 and a_ungrouped_calls["all_reduce"] == 4,
+           f"path A epoch compute: {a_epoch_calls['all_reduce']} all_reduce calls, one per compute group"
+           f" ({a_ungrouped_calls['all_reduce']} with compute_groups=False, same values as the CPU run)")
+    print(f"  ok: path A (F1 + Precision) / 2 equals the arithmetic of its parts on the card, per step and at the"
+          f" epoch ({composed:.6f})")
     print(f"[5] path B: {B_STEPS} steps of {B_N} scores, {B_T} thresholds: median {statistics.median(b_ms):.3f} ms/step"
           f" (first step {b_ms[0]:.1f} ms); K1 launches {b_launches}")
     _check(step_launches == [2 * (i + 1) for i in range(B_STEPS)], "path B: K1 launched exactly 2 times per step")
     _check(step_kernels.get("count_kernel", 0) == 2 and step_kernels.get("sort", 0) == 0,
            f"path B profiled step: 2 K1 kernels, no threshold ranking (no sort kernel) ({step_kernels})")
     _check_path_b(b_batches, b_values, b_epoch, col_b)
-    return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches}
+    check_path_c(path_c)
+    return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
+            "c": path_c["timings"]}
 
 
 def _profile_step(collection, batch):
@@ -402,6 +482,157 @@ def _check_path_b(batches, values, epoch, col_gpu):
                f"path B epoch {k} = {epoch[k].item():.6f} equals the oracle {want:.6f}")
 
 
+def _curve_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection([pt.AUROC(pos_label=1, device=device, **kw),
+                                pt.AveragePrecision(pos_label=1, device=device, **kw)])
+
+
+def _curve_batches(steps, n):
+    """Seeded scores on a 2**-12 grid (tied), about 10% positives."""
+    rng = np.random.default_rng(3)
+    batches = []
+    for _ in range(steps):
+        target = (rng.random(n) < 0.1).astype(np.int64)
+        logits = rng.standard_normal(n, dtype=np.float32) + 1.5 * target
+        scores = np.round(1 / (1 + np.exp(-logits)) * 4096) / 4096
+        batches.append((scores.astype(np.float32), target))
+    return batches
+
+
+def _curve_oracle(scores, target):
+    """(AUROC, AP, distinct thresholds descending, fpr, tpr) in float64 numpy."""
+    uniq, inverse, counts = np.unique(scores, return_inverse=True, return_counts=True)
+    pos_per = np.bincount(inverse, weights=target, minlength=len(uniq))
+    neg_per = counts - pos_per
+    n_pos, n_neg = pos_per.sum(), neg_per.sum()
+    avg_rank = np.cumsum(counts) - (counts - 1) / 2.0  # ties share their average rank
+    auroc = (np.sum(pos_per * avg_rank) - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg)
+    tp, fp = np.cumsum(pos_per[::-1]), np.cumsum(neg_per[::-1])
+    recall = tp / n_pos
+    ap = np.sum(np.diff(np.concatenate([[0.0], recall])) * tp / (tp + fp))
+    return auroc, ap, uniq[::-1], np.concatenate([[0.0], fp / n_neg]), np.concatenate([[0.0], tp / n_pos])
+
+
+def run_path_c(device):
+    """Path C inside the caller's process group: both modes, timed, the epoch profiled."""
+    import torch
+
+    host = _curve_batches(C_STEPS, C_N)
+    batches = [(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device)) for p, t in host]
+    runs = {}
+    for mode, kw in (("list", {}), ("capacity", {"capacity": C_CAPACITY})):
+        col = _curve_collection(device, **kw)
+        values, ms = _run_steps(col, batches)
+        epoch_ms = []
+        for _ in range(2):  # the first epoch compute, then the same again with the compute caches cleared
+            for m in col.values():
+                m._computed = None
+            t0 = time.perf_counter()
+            with _CountCollectives() as calls:
+                epoch = col.compute()
+                _sync(device)
+            epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        runs[mode] = {"values": values, "ms": ms, "epoch": epoch, "epoch_ms": epoch_ms, "calls": dict(calls),
+                      "collection": col}
+    profile = _profile_epoch(runs["list"]["collection"], device)
+    import metrics_tpu_torch as pt
+
+    roc = pt.ROC(pos_label=1, device=device)
+    roc.update(*batches[0])
+    fpr, tpr, thresholds = roc.compute()
+    return {"host": host, "runs": runs, "roc": (fpr.cpu().numpy(), tpr.cpu().numpy(), thresholds.cpu().numpy()),
+            "timings": {"forward_ms": {m: r["ms"] for m, r in runs.items()},
+                        "epoch_ms": {m: r["epoch_ms"] for m, r in runs.items()},
+                        "epoch_collectives": {m: r["calls"] for m, r in runs.items()},
+                        "epoch_profile": profile}}
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _run_steps(collection, batches, on_step=None):
+    """Per-step values (tensors), per-step milliseconds (host clock, synchronized)."""
+    values, ms = [], []
+    for i, (preds, target) in enumerate(batches):
+        t0 = time.perf_counter()
+        values.append(collection(preds, target))
+        _sync(preds.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if on_step is not None:
+            on_step(i)
+    return values, ms
+
+
+def _profile_epoch(collection, device):
+    """Device operations of an uncached epoch compute (``torch.profiler``, 3 calls): the sort kernels'
+    share of its device time, and the top operations."""
+    if device.type != "cuda":
+        return None
+    from metrics_tpu_torch.tools.cuda_timing import device_breakdown
+
+    def fresh_compute():
+        for m in collection.values():
+            m._computed = None
+        collection.compute()
+
+    rows = device_breakdown(fresh_compute, calls=3)
+    total = sum(r["us_per_call"] for r in rows)
+    sort = sum(r["us_per_call"] for r in rows if "sort" in r["name"].lower())
+    return {"sort_share": sort / total, "sort_ms": sort / 1e3, "device_ms": total / 1e3, "top": rows[:8]}
+
+
+def check_path_c(result):
+    """Both modes against the numpy oracle and each other; the ROC of batch 0 against the oracle's curve."""
+    runs, host = result["runs"], result["host"]
+    worst = 0.0
+    for step, (scores, target) in enumerate(host):
+        auroc, ap, _, _, _ = _curve_oracle(scores, target)
+        for mode, run in runs.items():
+            got = run["values"][step]
+            for k, want in (("AUROC", auroc), ("AveragePrecision", ap)):
+                if not np.isclose(got[k].item(), want, rtol=RTOL_ORACLE, atol=0):
+                    raise AssertionError(f"path C {mode} step {step} {k}: {got[k].item()} vs oracle {want}")
+                worst = max(worst, abs(got[k].item() - want) / want)
+    print(f"  ok: path C per-step AUROC / AP of both modes equal the numpy oracle (rtol {RTOL_ORACLE};"
+          f" max rel diff {worst:.3g})")
+    all_scores = np.concatenate([s for s, _ in host])
+    all_target = np.concatenate([t for _, t in host])
+    auroc, ap, thresholds, fpr, tpr = _curve_oracle(all_scores, all_target)
+    for mode, run in runs.items():
+        for k, want in (("AUROC", auroc), ("AveragePrecision", ap)):
+            got = run["epoch"][k].item()
+            _check(np.isclose(got, want, rtol=RTOL_ORACLE, atol=0),
+                   f"path C {mode} epoch {k} = {got:.7f} equals the oracle {want:.7f} over {len(all_scores)} samples")
+    for k in ("AUROC", "AveragePrecision"):
+        a, b = runs["list"]["epoch"][k].item(), runs["capacity"]["epoch"][k].item()
+        _check(np.isclose(a, b, rtol=RTOL_ORACLE, atol=0), f"path C epoch {k}: list mode {a:.7f} = capacity mode {b:.7f}")
+    _, _, thr0, fpr0, tpr0 = _curve_oracle(*host[0])
+    got_fpr, got_tpr, got_thr = result["roc"]
+    _check(np.array_equal(got_thr[1:], thr0.astype(np.float32)) and got_thr[0] == thr0[0] + 1,
+           f"path C ROC of batch 0: exactly the oracle's {len(thr0)} distinct thresholds (max + 1 first)")
+    _check(np.allclose(got_fpr, fpr0, rtol=RTOL_CURVE, atol=0) and np.allclose(got_tpr, tpr0, rtol=RTOL_CURVE, atol=0),
+           f"path C ROC of batch 0: fpr / tpr within rtol {RTOL_CURVE} of the oracle")
+    t = result["timings"]
+    for mode in runs:
+        fwd = t["forward_ms"][mode]
+        print(f"[6] path C {mode}: {C_STEPS} steps of {C_N} scores: forward {', '.join(f'{x:.2f}' for x in fwd)} ms/step"
+              f" (median {statistics.median(fwd):.2f}); epoch compute {t['epoch_ms'][mode][0]:.2f} ms"
+              f" (again: {t['epoch_ms'][mode][1]:.2f} ms);"
+              f" epoch sync collectives {t['epoch_collectives'][mode]}")
+    prof = t["epoch_profile"]
+    if prof is not None:
+        print(f"    path C list-mode epoch compute, profiled: {prof['device_ms']:.3f} ms device time a compute,"
+              f" sort kernels {prof['sort_ms']:.3f} ms ({100 * prof['sort_share']:.1f}%)")
+        for op in prof["top"]:
+            print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
+
+
 def main() -> int:
     import torch
 
@@ -441,6 +672,7 @@ def main() -> int:
         "path_a_ms_per_step": paths["a_ms"],
         "path_b_ms_per_step": paths["b_ms"],
     }
+
     print(json.dumps({"kernels": [kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,19 +11,41 @@ Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
   delta; ``dist_sync_on_step`` members of a group share ONE per-step sync of
   that delta (``_step_sync_shares``). The port syncs whenever a
   ``torch.distributed`` group is initialized, even at world size 1;
+* ``compute``: the grouped epoch sync (the synchronous form of the JAX
+  package's ``_grouped_host_sync``). When a ``torch.distributed`` group is
+  initialized or a ``dist_sync_fn`` is set, each compute group of >= 2
+  members in lockstep syncs ONCE, every such member computes from that one
+  synced state and keeps its own local state. Lockstep is tracked on the
+  host with no device work: after every collection-level write the
+  collection records which state tensors each member holds, and a member
+  found holding others (written outside the collection) is diverged until
+  the next collection-level ``reset``. Diverged members, singleton groups
+  and members with their own sync configuration sync on their own;
 * ``state_dict`` / ``load_state_dict`` with the ``_compute_group_manifest``:
   one copy of each group's states plus a ``{member: representative}`` map,
   readable by the JAX package and back.
 """
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 from torch import nn
 
 from metrics_tpu_torch.core.metric import Metric
-from metrics_tpu_torch.parallel.sync import all_reduce_state, dist_active, host_gather
+from metrics_tpu_torch.parallel.sync import dist_active
 from metrics_tpu_torch.utils.checks import shared_input_format
 from metrics_tpu_torch.utils.device import check_same_device
+
+
+def _state_refs(metric: Metric) -> tuple:
+    """The state objects a metric holds now. Every state write rebinds them
+    (lists: their elements), so comparing by identity detects writes."""
+    return tuple(tuple(v) if isinstance(v, list) else v for v in metric._current_state().values())
+
+
+def _same_refs(a: Any, b: Any) -> bool:
+    if type(a) is tuple and type(b) is tuple:
+        return len(a) == len(b) and all(_same_refs(x, y) for x, y in zip(a, b))
+    return a is b
 
 
 class MetricCollection(nn.ModuleDict):
@@ -52,6 +74,8 @@ class MetricCollection(nn.ModuleDict):
         super().__init__()
         self._enable_compute_groups = bool(compute_groups)
         self._groups: Optional[Dict[str, str]] = None
+        self._lockstep_refs: Dict[str, tuple] = {}
+        self._diverged: Set[str] = set()
         if isinstance(metrics, dict):
             for name, metric in metrics.items():
                 if not isinstance(metric, Metric):
@@ -72,10 +96,26 @@ class MetricCollection(nn.ModuleDict):
     def __setitem__(self, key: str, value: Metric) -> None:
         self._groups = None  # group assignment is membership-derived
         super().__setitem__(key, value)
+        # a member that accumulated before joining is not in lockstep with its group
+        if value._count_bound > 0:
+            self._diverged.add(key)
+        self._lockstep_refs[key] = _state_refs(value)
 
     def __delitem__(self, key: str) -> None:
         self._groups = None
         super().__delitem__(key)
+        self._lockstep_refs.pop(key, None)
+        self._diverged.discard(key)
+
+    # ------------------------------------------------------ lockstep tracking
+    def _lockstep_check(self) -> None:
+        """Mark members whose states were written outside the collection."""
+        for k, m in self.items():
+            if not _same_refs(self._lockstep_refs.get(k), _state_refs(m)):
+                self._diverged.add(k)
+
+    def _lockstep_record(self) -> None:
+        self._lockstep_refs = {k: _state_refs(m) for k, m in self.items()}
 
     # ---------------------------------------------------------- compute groups
     def _group_map(self) -> Dict[str, str]:
@@ -132,10 +172,7 @@ class MetricCollection(nn.ModuleDict):
         """The group's batch delta after ONE shared cross-rank sync."""
         if rep not in cache:
             m = self[member]
-            if m.dist_sync_fn is not None:
-                cache[rep] = host_gather(delta, m._reductions, m.dist_sync_fn)
-            else:
-                cache[rep] = all_reduce_state(delta, m._reductions, group=m.process_group)
+            cache[rep] = m._synced_state(m.dist_sync_fn, state=delta)
         return cache[rep]
 
     def _group_delta(self, rep: str, args: tuple, kwargs: dict) -> Dict[str, Any]:
@@ -149,8 +186,11 @@ class MetricCollection(nn.ModuleDict):
         """Forward every member with the compute-group delta shared; kwargs
         are filtered per member signature. Input formatting is memoized for
         the step, so groups over the same ``(preds, target)`` format it once."""
+        self._lockstep_check()
         with shared_input_format():
-            return self._forward_eager_body(*args, **kwargs)
+            out = self._forward_eager_body(*args, **kwargs)
+        self._lockstep_record()
+        return out
 
     def _forward_eager_body(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         shared = self._eager_shared_groups()
@@ -183,6 +223,7 @@ class MetricCollection(nn.ModuleDict):
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate: one update per compute group, merged into every member."""
+        self._lockstep_check()
         shared = self._eager_shared_groups()
         deltas: Dict[str, Any] = {}
         for k, m in self.items():
@@ -196,13 +237,55 @@ class MetricCollection(nn.ModuleDict):
             m._computed = None
             m._note_rows(args, kw)
             m._set_state(m.merge_states(m._current_state(), deltas[rep]))
+        self._lockstep_record()
 
     def compute(self) -> Dict[str, Any]:
-        return {self._set_prefix(k): m.compute() for k, m in self.items()}
+        shared = self._grouped_epoch_sync()
+        return {self._set_prefix(k): shared[k] if k in shared else m.compute() for k, m in self.items()}
+
+    def _grouped_epoch_sync(self) -> Dict[str, Any]:
+        """ONE cross-rank sync per compute group: {member: computed value} for
+        the members it served. A group shares its sync among the members that
+        are in lockstep, have no cached value, and sync through the same
+        ``dist_sync_fn`` and ``process_group`` as the group's representative;
+        at least two must. Each computes from the synced state and gets its
+        own state back."""
+        self._lockstep_check()
+        active = dist_active()
+        out: Dict[str, Any] = {}
+        for rep, members in self.compute_groups.items():
+            rep_m = self[rep]
+            if len(members) < 2 or (rep_m.dist_sync_fn is None and not active):
+                continue
+            share = [
+                k for k in members
+                if k not in self._diverged
+                and self[k]._to_sync
+                and self[k]._computed is None
+                and self[k].dist_sync_fn is rep_m.dist_sync_fn
+                and self[k].process_group is rep_m.process_group
+            ]
+            if len(share) < 2:
+                continue
+            synced = self[share[0]]._synced_state(rep_m.dist_sync_fn)
+            for k in share:
+                m = self[k]
+                cache = m._current_state()
+                m._set_state(synced)
+                m._to_sync = False
+                try:
+                    out[k] = m.compute()
+                finally:
+                    m._set_state(cache)
+                    m._to_sync = True
+        return out
 
     def reset(self) -> None:
         for m in self.values():
             m.reset()
+        # every member is back at its defaults: groups are in lockstep again
+        self._diverged.clear()
+        self._lockstep_record()
 
     def persistent(self, mode: bool = True) -> None:
         for m in self.values():
@@ -244,6 +327,7 @@ class MetricCollection(nn.ModuleDict):
         """Load a (possibly group-merged) collection checkpoint: manifest
         members fan out from their representative's copy."""
         manifest = state_dict.get(prefix + self._GROUP_MANIFEST_KEY, {})
+        gm = self._group_map()
         for name, m in self.items():
             src = manifest.get(name, name)
             m.load_state_dict(state_dict, prefix=f"{prefix}{src}.")
@@ -252,6 +336,12 @@ class MetricCollection(nn.ModuleDict):
                     key = f"{prefix}{name}.{attr}"
                     if key in state_dict:
                         setattr(m, attr, int(state_dict[key]))
+                # a fanned-out member holds its representative's values: in lockstep
+                self._diverged.discard(name)
+            elif gm[name] != name:
+                # a grouped member saved from its own entry had diverged at save time
+                self._diverged.add(name)
+        self._lockstep_record()
 
     def _set_prefix(self, k: str) -> str:
         return k if self.prefix is None else self.prefix + k

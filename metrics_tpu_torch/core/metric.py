@@ -11,10 +11,17 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
 * the wrapped ``compute``: cached value, sync at compute (whenever a
   ``torch.distributed`` group is initialized or a ``dist_sync_fn`` is given),
   and the local state restored after a synced compute;
+* ``capacity``: cat states become fixed-capacity
+  :class:`~metrics_tpu_torch.parallel.buffer.PaddedBuffer` s, declared with an
+  ``item_shape`` or promoted at the first append from the batch's item shape
+  and dtype;
 * ``reset``, and ``state_dict`` / ``load_state_dict`` in the JAX package's key
-  layout (host numpy values plus ``_count_bound`` and ``_epoch_watermark``), so
-  a checkpoint of either package loads into the other;
-* the compute-group fingerprint ``_group_fingerprint``.
+  layout (host numpy values, a buffer as ``{"data", "count"}``, plus
+  ``_count_bound`` and ``_epoch_watermark``), so a checkpoint of either
+  package loads into the other;
+* the compute-group fingerprint ``_group_fingerprint``;
+* metric arithmetic: every operator overload builds a
+  :class:`CompositionalMetric`.
 
 PyTorch runs eagerly, so there is no jit, no ``pure()`` and no scan here.
 States live on ``self.device``: ``cuda`` unless the caller passes
@@ -24,12 +31,13 @@ import functools
 import inspect
 from abc import ABC, abstractmethod
 from copy import deepcopy
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_append, buffer_init
 from metrics_tpu_torch.parallel.sync import (
     ReduceFx,
     all_reduce_state,
@@ -45,6 +53,14 @@ State = Dict[str, Any]
 
 # attributes holding the bound update/compute wrappers: rebuilt, never copied
 _WRAPPER_ATTRS = ("update", "compute", "_update_impl", "_compute_impl")
+
+
+class _BufferSpec(NamedTuple):
+    """The layout a cat state's PaddedBuffer is (re)built with at every reset."""
+
+    capacity: int
+    item_shape: tuple
+    dtype: torch.dtype
 
 
 class _Unfingerprintable(Exception):
@@ -83,6 +99,9 @@ class Metric(nn.Module, ABC):
             the bucketed ``all_reduce``.
         device: where the states live. ``None`` means ``cuda`` and raises
             when no GPU is present; pass ``"cpu"`` to run on the CPU.
+        capacity: fixed capacity for cat (list) states. With it they become
+            PaddedBuffers: declared with ``item_shape`` at ``add_state``, or
+            promoted at the first append, which fixes the item shape and dtype.
     """
 
     # Attr names that feed ``update``; a subclass declares them to opt its
@@ -96,9 +115,11 @@ class Metric(nn.Module, ABC):
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
         device: Optional[Union[str, torch.device]] = None,
+        capacity: Optional[int] = None,
     ):
         super().__init__()
         self.device = resolve_device(device)
+        self.capacity = capacity
         self.compute_on_step = compute_on_step
         self.dist_sync_on_step = dist_sync_on_step
         self.process_group = process_group
@@ -112,9 +133,12 @@ class Metric(nn.Module, ABC):
         self._count_bound = 0
         self._epoch_watermark = 0
 
-        self._defaults: Dict[str, Any] = {}  # tensor templates on self.device, or []
+        self._defaults: Dict[str, Any] = {}  # tensor templates on self.device, [] or a _BufferSpec
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, ReduceFx] = {}
+        # (dtype, item shape) of each list state, from its declaration or first
+        # append: a rank that holds no rows still enters the gather with them
+        self._cat_layouts: Dict[str, tuple] = {}
         self._wrap_methods()
 
     def _wrap_methods(self) -> None:
@@ -126,10 +150,19 @@ class Metric(nn.Module, ABC):
 
     # ------------------------------------------------------------------ state
     def add_state(
-        self, name: str, default: Any, dist_reduce_fx: Optional[ReduceFx] = None, persistent: bool = False
+        self,
+        name: str,
+        default: Any,
+        dist_reduce_fx: Optional[ReduceFx] = None,
+        persistent: bool = False,
+        item_shape: Optional[tuple] = None,
+        item_dtype: Optional[torch.dtype] = None,
     ) -> None:
         """Register a state: a tensor (fixed-shape state, placed on ``self.device``)
-        or an empty list (cat state)."""
+        or an empty list (cat state). A list state may declare ``item_shape`` /
+        ``item_dtype`` (default float32): with a ``capacity`` it is then a
+        PaddedBuffer from the start, and without one the layout lets a rank
+        with no rows enter the cross-rank gather."""
         is_list = isinstance(default, list) and len(default) == 0
         is_arraylike = isinstance(default, (int, float, np.ndarray, Tensor)) and not isinstance(default, bool)
         if not (is_list or is_arraylike):
@@ -137,20 +170,45 @@ class Metric(nn.Module, ABC):
         self._reductions[name] = canonicalize_reduce_fx(dist_reduce_fx)
         self._persistent[name] = persistent
         if is_list:
-            self._defaults[name] = []
-            setattr(self, name, [])
+            if item_shape is not None:
+                self._cat_layouts[name] = (item_dtype or torch.float32, tuple(item_shape))
+            if self.capacity is not None and item_shape is not None:
+                self._defaults[name] = _BufferSpec(self.capacity, tuple(item_shape), item_dtype or torch.float32)
+            else:
+                self._defaults[name] = []
+            setattr(self, name, self._materialize(self._defaults[name]))
             return
         template = torch.as_tensor(default).to(self.device)
         self._defaults[name] = template
         self.register_buffer(name, template.clone(), persistent=False)
 
     def _append(self, name: str, value: Tensor) -> None:
-        """Append to a cat (list) state."""
-        getattr(self, name).append(value)
+        """Append to a cat state: a list, or a PaddedBuffer.
+
+        With a ``capacity``, the first append to an undeclared list state
+        promotes it to a PaddedBuffer with the batch's item shape and dtype,
+        which every later reset rebuilds.
+        """
+        current = getattr(self, name)
+        if isinstance(current, PaddedBuffer):
+            setattr(self, name, buffer_append(current, value))
+            return
+        rows = torch.atleast_1d(value)
+        self._cat_layouts.setdefault(name, (rows.dtype, tuple(rows.shape[1:])))
+        if self.capacity is not None and isinstance(self._defaults[name], list) and not current:
+            self._defaults[name] = _BufferSpec(self.capacity, tuple(rows.shape[1:]), rows.dtype)
+            setattr(self, name, buffer_append(self._materialize(self._defaults[name]), rows))
+            return
+        current.append(value)
+
+    def _materialize(self, default: Any) -> Any:
+        if isinstance(default, _BufferSpec):
+            return buffer_init(default.capacity, default.item_shape, default.dtype, device=self.device)
+        return default.clone() if isinstance(default, Tensor) else []
 
     def init_state(self) -> State:
         """Fresh default state dict, on ``self.device``."""
-        return {n: (t.clone() if isinstance(t, Tensor) else []) for n, t in self._defaults.items()}
+        return {n: self._materialize(d) for n, d in self._defaults.items()}
 
     def _current_state(self) -> State:
         return {name: getattr(self, name) for name in self._defaults}
@@ -176,7 +234,7 @@ class Metric(nn.Module, ABC):
     # --------------------------------------------------------------- forward
     @property
     def _fusable(self) -> bool:
-        return all(is_mergeable(self._reductions[n], self._defaults[n]) for n in self._defaults)
+        return all(is_mergeable(self._reductions[n], getattr(self, n)) for n in self._defaults)
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate this batch and (if ``compute_on_step``) return its batch value."""
@@ -244,14 +302,18 @@ class Metric(nn.Module, ABC):
             self._epoch_watermark += 1
 
     # ------------------------------------------------------------------ sync
+    def _synced_state(self, dist_sync_fn: Optional[Callable] = None, state: Optional[State] = None) -> State:
+        """The cross-rank reduction of ``state`` (default: the current state, which stays as it is)."""
+        state = self._current_state() if state is None else state
+        if dist_sync_fn is not None:
+            return host_gather(state, self._reductions, dist_sync_fn)
+        return all_reduce_state(
+            state, self._reductions, group=self.process_group, layouts=self._cat_layouts, device=self.device
+        )
+
     def _sync_dist(self, dist_sync_fn: Optional[Callable] = None) -> None:
         """Replace the current state by its cross-rank reduction."""
-        state = self._current_state()
-        if dist_sync_fn is not None:
-            synced = host_gather(state, self._reductions, dist_sync_fn)
-        else:
-            synced = all_reduce_state(state, self._reductions, group=self.process_group)
-        self._set_state(synced)
+        self._set_state(self._synced_state(dist_sync_fn))
 
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
@@ -312,9 +374,12 @@ class Metric(nn.Module, ABC):
         # and list states follow, and ``self.device`` records where they went
         super()._apply(fn, *args, **kwargs)
         self._defaults = {k: fn(v) if isinstance(v, Tensor) else v for k, v in self._defaults.items()}
-        for name, default in self._defaults.items():
-            if isinstance(default, list):
-                setattr(self, name, [fn(v) for v in getattr(self, name)])
+        for name in self._defaults:
+            value = getattr(self, name)
+            if isinstance(value, PaddedBuffer):
+                setattr(self, name, PaddedBuffer(fn(value.data), fn(value.count)))
+            elif isinstance(value, list):
+                setattr(self, name, [fn(v) for v in value])
         self.device = fn(torch.empty(0, device=self.device)).device
         return self
 
@@ -331,6 +396,8 @@ class Metric(nn.Module, ABC):
                 value = getattr(self, key)
                 if isinstance(value, list):
                     destination[prefix + key] = [v.detach().cpu().numpy() for v in value]
+                elif isinstance(value, PaddedBuffer):
+                    destination[prefix + key] = {"data": value.data.cpu().numpy(), "count": value.count.cpu().numpy()}
                 else:
                     destination[prefix + key] = value.detach().cpu().numpy()
         destination[prefix + "_count_bound"] = np.asarray(self._count_bound, dtype=np.int64)
@@ -344,7 +411,13 @@ class Metric(nn.Module, ABC):
             if prefix + key not in state_dict:
                 continue
             value = state_dict[prefix + key]
-            if isinstance(value, list):
+            if isinstance(value, dict) and set(value) == {"data", "count"}:
+                data = torch.tensor(np.asarray(value["data"]), device=self.device)
+                count = torch.tensor(np.asarray(value["count"]), dtype=torch.int64, device=self.device)
+                if isinstance(default, list):  # resumes a buffer: later resets rebuild it
+                    self._defaults[key] = _BufferSpec(data.shape[0], tuple(data.shape[1:]), data.dtype)
+                setattr(self, key, PaddedBuffer(data, count))
+            elif isinstance(value, list):
                 setattr(self, key, [torch.tensor(np.asarray(v), device=self.device) for v in value])
             else:
                 setattr(self, key, torch.tensor(np.asarray(value), device=self.device, dtype=default.dtype))
@@ -367,7 +440,7 @@ class Metric(nn.Module, ABC):
             return None
         update_fn = next((vars(k)["update"] for k in type(self).__mro__ if "update" in vars(k)), None)
         try:
-            config = tuple((a, _fingerprint_value(getattr(self, a, None))) for a in attrs)
+            config = tuple((a, _fingerprint_value(getattr(self, a, None))) for a in (*attrs, "capacity"))
             schema = tuple(
                 (n, _fingerprint_value(self._defaults[n]), _fingerprint_value(self._reductions[n]))
                 for n in sorted(self._defaults)
@@ -388,3 +461,198 @@ class Metric(nn.Module, ABC):
 
     def extra_repr(self) -> str:
         return f"device={self.device}"
+
+    # ------------------------------------------------------------- operators
+    def __hash__(self) -> int:
+        # identity, as the JAX package's id-based hash: ``__eq__`` below composes
+        return hash((type(self).__name__, id(self)))
+
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, self, other)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.eq, self, other)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.ge, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.gt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.le, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.lt, self, other)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, self, other)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.fmod, self, other)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.ne, self, other)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, self, other)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, other, self)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        # bitwise_and is commutative
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, other, self)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, other, self)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.fmod, other, self)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, other, self)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, other, self)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, other, self)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, other, self)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, other, self)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, self, other)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, self, other)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __inv__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_not, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return self.__inv__()
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+
+def _neg(tensor: Tensor) -> Tensor:
+    # the reference's quirk, kept by the JAX package: ``-metric`` is ``-abs(value)``
+    return -torch.abs(tensor)
+
+
+class CompositionalMetric(Metric):
+    """Lazy composition of two metrics (or a metric and a constant) under an operator.
+
+    ``forward`` runs ONE forward per child metric and applies the operator to
+    their batch values; ``update`` / ``reset`` / ``persistent`` reach both
+    children; ``compute`` applies the operator to the children's computes.
+    Each child syncs on its own, so the composition never syncs. Constants
+    become tensors on the composition's device (the first child metric's).
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, int, float, Tensor],
+        metric_b: Union[Metric, int, float, Tensor, None],
+    ):
+        child = metric_a if isinstance(metric_a, Metric) else metric_b
+        super().__init__(device=child.device)
+        self.op = operator
+        self.metric_a = self._operand(metric_a)
+        self.metric_b = self._operand(metric_b)
+
+    def _operand(self, value: Any) -> Any:
+        if value is None or isinstance(value, Metric):
+            return value
+        return torch.as_tensor(value, device=self.device)
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None) -> None:
+        # the child metrics sync themselves
+        pass
+
+    @property
+    def _fusable(self) -> bool:
+        # forward() is overridden below; the base dispatch never runs
+        return False
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """One forward per child; the composed batch value is the operator over theirs."""
+        self._computed = None  # the children advanced: a cached epoch value is stale
+
+        def _child(child: Any) -> Any:
+            if isinstance(child, Metric):
+                return child.forward(*args, **child._filter_kwargs(**kwargs))
+            return child
+
+        val_a = _child(self.metric_a)
+        val_b = _child(self.metric_b)
+        if not self.compute_on_step:
+            return None
+        # a child with compute_on_step=False yields no batch value to compose
+        if val_a is None or (isinstance(self.metric_b, Metric) and val_b is None):
+            return None
+        self._forward_cache = self.op(val_a) if val_b is None else self.op(val_a, val_b)
+        return self._forward_cache
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def reset(self) -> None:
+        self._computed = None
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def extra_repr(self) -> str:
+        return f"op={getattr(self.op, '__name__', self.op)}, device={self.device}"

@@ -1,4 +1,5 @@
 from metrics_tpu_torch.utils.data import (  # noqa: F401
+    ClassScores,
     apply_to_collection,
     dim_zero_cat,
     dim_zero_max,

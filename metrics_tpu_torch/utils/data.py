@@ -19,6 +19,32 @@ def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:
     return torch.cat([torch.atleast_1d(v) for v in x], dim=0)
 
 
+class ClassScores(list):
+    """Per-class results: a list of 0-d tensors (the shape the JAX package's
+    ``ClassScores`` gives), with the ``(C,)`` tensor they are views of kept as
+    ``.array`` so the caller can read every class back in one transfer."""
+
+    __slots__ = ("array",)
+
+    def __init__(self, values: Tensor):
+        super().__init__(values.unbind(0))
+        self.array = values
+
+
+def scatter_rows_drop(out: Tensor, dest: Tensor, rows: Tensor) -> Tensor:
+    """``out`` with ``rows[i]`` written at row ``dest[i]``; rows whose ``dest``
+    lies outside ``[0, len(out))`` are dropped (the ``mode="drop"`` scatter of
+    the JAX package). ``out`` is not modified. Destinations inside the range
+    must be unique. A dropped row goes to a spare row of its own past the end,
+    so no two writes share a row."""
+    n, k = out.shape[0], rows.shape[0]
+    ext = torch.cat([out, out.new_empty((k, *out.shape[1:]))])
+    spare = n + torch.arange(k, device=dest.device)
+    dest = torch.where((dest >= 0) & (dest < n), dest, spare)
+    ext.index_copy_(0, dest, rows.to(out.dtype))
+    return ext[:n]
+
+
 def dim_zero_sum(x: Tensor) -> Tensor:
     return torch.sum(x, dim=0)
 

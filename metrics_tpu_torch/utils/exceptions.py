@@ -4,7 +4,7 @@ Counterpart of ``metrics_tpu/utils/exceptions.py``, cut to the errors this
 package raises. Every deliberate error derives from :class:`MetricsTorchError`.
 """
 
-__all__ = ["DeviceMismatchError", "MetricsTorchError", "NoDeviceError"]
+__all__ = ["BufferOverflowError", "DeviceMismatchError", "MetricsTorchError", "NoDeviceError"]
 
 
 class MetricsTorchError(Exception):
@@ -19,3 +19,10 @@ class NoDeviceError(MetricsTorchError, RuntimeError):
 
 class DeviceMismatchError(MetricsTorchError, RuntimeError):
     """An input tensor lies on another device than the metric's states."""
+
+
+class BufferOverflowError(MetricsTorchError, RuntimeError):
+    """More rows were appended into a ``PaddedBuffer`` than its capacity holds
+    (the overflowed rows were dropped on the device). Raised by the ``error``
+    overflow policy; ``warn_drop`` warns once and keeps the capacity-truncated
+    rows (see ``parallel.buffer.set_overflow_policy``)."""

@@ -192,12 +192,8 @@ _WORKER = textwrap.dedent("""
     result["synced"] = {{k: v.tolist() for k, v in synced.items()}}
     result["local_kept"] = state["a"].tolist() == [rank, 1]
     cat = pt.StatScores(reduce="samples", device="cpu")
-    cat.update(torch.tensor([0.2, 0.8]), torch.tensor([0, 1]))
-    try:
-        cat.compute()
-        result["cat_sync"] = "synced"
-    except NotImplementedError:
-        result["cat_sync"] = "NotImplementedError"
+    cat.update(torch.tensor([0.2, 0.8 - 0.5 * rank]), torch.tensor([0, 1]))
+    result["cat_sync"] = cat.compute().tolist()
     json.dump(result, open(out, "w"))
     dist.destroy_process_group()
 """)
@@ -240,7 +236,12 @@ def test_two_process_gloo_sync_equals_one_process(tmp_path):
         assert results[r]["buckets"] == ["torch.float32", "torch.float32", "torch.int64", "torch.int64"]
         assert results[r]["synced"] == {"a": [1, 2], "b": 5, "c": [0.5, 4.0], "d": 2.0, "e": [0.25], "f": 10}
         assert results[r]["local_kept"]
-        assert results[r]["cat_sync"] == "NotImplementedError"  # cat-state all_gather is not ported yet
+    # the cat (list) state gathers across the ranks: equal to one process over both ranks' batches in rank order
+    cat = pt.StatScores(reduce="samples", device="cpu")
+    for r in range(2):
+        cat.update(torch.tensor([0.2, 0.8 - 0.5 * r]), torch.tensor([0, 1]))
+    for r in range(2):
+        assert results[r]["cat_sync"] == cat.compute().tolist()
 
 
 @pytest.mark.parametrize("kind,build", [("main", _main_path), ("binned", _binned)])
