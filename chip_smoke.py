@@ -49,7 +49,30 @@ Phases, in order; each raises on failure and none is caught:
    thresholds, fpr / tpr to rtol 1e-6. Prints forward ms per step, epoch
    ``compute()`` ms, the collective calls of the epoch sync and the sort's
    share of a profiled epoch compute. Path C runs no hand-written kernel.
-7. The ``kernels`` JSON line, then the device JSON as the last line.
+7. Path D, the rest of classification, in the same group with
+   ``dist_sync_on_step`` and ``device="cuda"`` (no CPU fallback, nothing
+   caught). D1 at path A's batch and ImageNet-1k's classes:
+   ``MetricCollection([ConfusionMatrix, IoU, CohenKappa, MatthewsCorrcoef,
+   Specificity (macro), HammingDistance, ExactMatch, CalibrationError (15
+   bins), HingeLoss])``, 20 steps of 4,096 x 1,000 float32 probabilities
+   (seeded numpy logits, 2 x N(0, 1) with the true class raised by 8: top-1
+   about 77%, confidence spread over every bin). D2 at MS-COCO's 80
+   categories: ``MetricCollection([CoverageError, LabelRankingAveragePrecision,
+   LabelRankingLoss, CriticalSuccessIndex(0.5)])``, 10 steps of 4,096 x 80
+   multilabel scores (about 2.9 true labels a row, scores on a 2**-8 grid, so
+   tied). The epoch confusion matrix equals a numpy ``bincount`` oracle
+   exactly, every count state equals the CPU run's, and every per-step and
+   epoch value equals the CPU run and a float64 numpy oracle to the stated
+   tolerances. Each step makes one update per compute group of the CPU run,
+   and the epoch ``compute()`` one sync per group: one ``all_reduce`` per
+   state dtype of the group (a group holding float32 sums and int64 counts
+   makes two). Prints ms per step and epoch ``compute()`` ms, and a profiled step:
+   its device time and operations (``torch.profiler``) and its synchronizing CUDA
+   calls (``torch.cuda.set_sync_debug_mode``). Path D runs no
+   hand-written kernel: its counting is torch ops (``bincount``,
+   ``index_add_``, elementwise compares, an einsum), as the JAX package's is
+   XLA, so the ``kernels`` line lists K1 alone.
+8. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -70,10 +93,19 @@ K1_N, K1_T = 4_194_304, 2_048
 A_STEPS, A_BATCH, A_CLASSES = 20, 4_096, 1_000
 B_STEPS, B_N, B_T = 10, 4_194_304, 2_048
 C_STEPS, C_N, C_CAPACITY = 3, 4_194_304, 16_777_216
+D1_STEPS, D_BINS = 20, 15  # D1 runs at path A's batch and class count
+D2_STEPS, D2_BATCH, D2_LABELS = 10, 4_096, 80
 RTOL_CURVE = 1e-6  # ROC points against the float64 oracle: one float32 division each
 RTOL_FLOAT = 1e-5  # float-weight counts and binned AUROC / AP: sums in another order
 RTOL_CLASS = 1e-6  # classification values, card against CPU: a mean in another order
 RTOL_ORACLE = 1e-5  # float32 values against the float64 numpy oracle
+# Path D, card against CPU and both against the float64 oracle: float32 sums over up to
+# 10^6 terms in another order (kappa's C*C products, per-bin confidence sums added with
+# atomics on the card, hinge and ranking totals) stay within a few ulps times log2(terms)
+RTOL_D = 1e-5
+# Hamming is 1 - correct / (N * C) with both counts rounded to float32 (the epoch's
+# 8.2e7 exceeds 2**24): a few ulps of 1.0 absolute, not relative to a value near 6e-4
+ATOL_HAMMING = 4 * 2.0**-24
 
 
 def _check(ok, what):
@@ -370,6 +402,7 @@ def phase_paths():
         a_ungrouped_calls, a_ungrouped = _epoch_collectives(_main_collection(dev, compute_groups=False), a_batches[:2])
         composed = _check_composition(dev, a_batches[:5])
         path_c = run_path_c(dev)
+        path_d = run_path_d(dev)
     finally:
         dist.destroy_process_group()
 
@@ -389,8 +422,9 @@ def phase_paths():
            f"path B profiled step: 2 K1 kernels, no threshold ranking (no sort kernel) ({step_kernels})")
     _check_path_b(b_batches, b_values, b_epoch, col_b)
     check_path_c(path_c)
+    d_timings = check_path_d(path_d)
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
-            "c": path_c["timings"]}
+            "c": path_c["timings"], "d": d_timings}
 
 
 def _profile_step(collection, batch):
@@ -633,6 +667,310 @@ def check_path_c(result):
             print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
 
 
+def _d1_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    c = A_CLASSES
+    return pt.MetricCollection([
+        pt.ConfusionMatrix(c, device=device, **kw),
+        pt.IoU(c, device=device, **kw),
+        pt.CohenKappa(c, device=device, **kw),
+        pt.MatthewsCorrcoef(c, device=device, **kw),
+        pt.Specificity(average="macro", num_classes=c, device=device, **kw),
+        pt.HammingDistance(device=device, **kw),
+        pt.ExactMatch(device=device, **kw),
+        pt.CalibrationError(n_bins=D_BINS, device=device, **kw),
+        pt.HingeLoss(device=device, **kw),
+    ])
+
+
+def _d2_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection([
+        pt.CoverageError(device=device, **kw),
+        pt.LabelRankingAveragePrecision(device=device, **kw),
+        pt.LabelRankingLoss(device=device, **kw),
+        pt.CriticalSuccessIndex(threshold=0.5, device=device, **kw),
+    ])
+
+
+def _d1_batches():
+    """Seeded probabilities: 2 x N(0, 1) logits with the true class raised by 8 (top-1 about 77%)."""
+    rng = np.random.default_rng(4)
+    rows = np.arange(A_BATCH)
+    batches = []
+    for _ in range(D1_STEPS):
+        logits = 2 * rng.standard_normal((A_BATCH, A_CLASSES))
+        target = rng.integers(0, A_CLASSES, A_BATCH)
+        logits[rows, target] += 8
+        e = np.exp(logits - logits.max(1, keepdims=True))
+        batches.append(((e / e.sum(1, keepdims=True)).astype(np.float32), target))
+    return batches
+
+
+def _d2_batches():
+    """Seeded multilabel scores: about 2.9 true labels a row (some rows none), scores on a 2**-8 grid."""
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(D2_STEPS):
+        target = (rng.random((D2_BATCH, D2_LABELS)) < 2.9 / D2_LABELS).astype(np.int64)
+        logits = rng.standard_normal((D2_BATCH, D2_LABELS)) + 2.0 * target - 1.0
+        scores = np.round(256 / (1 + np.exp(-logits))) / 256
+        batches.append((scores.astype(np.float32), target))
+    return batches
+
+
+def _d1_stats(p, t):
+    """Sufficient statistics of one D1 batch in float64 numpy; they add across batches."""
+    rows, pred = np.arange(len(t)), p.argmax(1)
+    conf = p.max(1)
+    # the bin of the reference's arithmetic: ceil(conf * B) in float32
+    bins = np.clip(np.ceil(conf * np.float32(D_BINS)).astype(np.int64) - 1, 0, D_BINS - 1)
+    wrong = p.astype(np.float64)
+    true_score = wrong[rows, t].copy()
+    wrong[rows, t] = -np.inf
+    return {
+        "confmat": np.bincount(t * A_CLASSES + pred, minlength=A_CLASSES * A_CLASSES).reshape(A_CLASSES, A_CLASSES),
+        "cal_conf": np.bincount(bins, weights=conf.astype(np.float64), minlength=D_BINS),
+        "cal_acc": np.bincount(bins, weights=(pred == t).astype(np.float64), minlength=D_BINS),
+        "cal_count": np.bincount(bins, minlength=D_BINS),
+        "hinge": np.maximum(0.0, 1.0 - (true_score - wrong.max(1))).sum(),
+    }
+
+
+def _d1_values(st):
+    """D1's values in float64 from summed statistics (a wrong one-hot row differs in two places)."""
+    conf = st["confmat"].astype(np.float64)
+    n, c = conf.sum(), conf.shape[0]
+    tp = np.diag(conf)
+    pred_n, true_n = conf.sum(0), conf.sum(1)
+    fp, fn = pred_n - tp, true_n - tp
+    union = tp + fp + fn
+    w = 1.0 - np.eye(c)
+    correct = tp.sum()
+    count = st["cal_count"].astype(np.float64)
+    seen = count > 0
+    gap = np.abs(st["cal_acc"][seen] - st["cal_conf"][seen]) / count[seen]
+    return {
+        "ConfusionMatrix": conf,
+        "IoU": np.where(union == 0, 0.0, tp / np.maximum(union, 1)).mean(),
+        "CohenKappa": 1 - (w * conf).sum() / (w * np.outer(true_n, pred_n) / n).sum(),
+        "MatthewsCorrcoef": (correct * n - pred_n @ true_n)
+        / (np.sqrt(n**2 - true_n @ true_n) * np.sqrt(n**2 - pred_n @ pred_n)),
+        "Specificity": ((n - tp - fp - fn) / (n - true_n)).mean(),
+        "HammingDistance": 2 * (n - correct) / (n * c),
+        "ExactMatch": correct / n,
+        "CalibrationError": np.sum(count[seen] / n * gap),
+        "HingeLoss": st["hinge"] / n,
+    }
+
+
+def _below(values, queries):
+    """Per row, how many of ``values[i]`` lie strictly below each ``queries[i, j]``: one sort and a
+    ``searchsorted`` over all rows, kept apart by an offset of 3 a row (every value is in [-1, 1])."""
+    n, width = queries.shape
+    offset = 3.0 * np.arange(n)[:, None]
+    flat = np.sort((values + offset).ravel())
+    below = np.searchsorted(flat, (queries + offset).ravel(), side="left").reshape(n, width)
+    return below - width * np.arange(n)[:, None]
+
+
+def _d2_stats(p, t):
+    """Sufficient statistics of one D2 batch: ranks from a sort (not the pairwise comparison the port
+    uses), ties counted pessimistically, degenerate rows as sklearn scores them."""
+    s, r = p.astype(np.float64), t > 0
+    labels = s.shape[1]
+    n_true = r.sum(1)
+    ranks = labels - _below(s, s)  # |{k: s_k >= s_j}|
+    among_true = n_true[:, None] - (_below(np.where(r, s, -1.0), s) - (labels - n_true)[:, None])
+    false_ge = ranks - among_true
+    lrap = np.where(r, among_true / ranks, 0.0).sum(1) / np.maximum(n_true, 1)
+    pairs = n_true * (labels - n_true)
+    violations = np.where(r, false_ge, 0).sum(1)
+    pe, te = p >= 0.5, t >= 0.5
+    return {
+        "coverage": np.where(r, ranks, 0).max(1).sum(),
+        "lrap": np.where((n_true == 0) | (n_true == labels), 1.0, lrap).sum(),
+        "lrl": np.where(pairs > 0, violations / np.maximum(pairs, 1), 0.0).sum(),
+        "n": len(t),
+        "tp": int((pe & te).sum()),
+        "fp_fn": int((pe != te).sum()),
+    }
+
+
+def _d2_values(st):
+    return {
+        "CoverageError": st["coverage"] / st["n"],
+        "LabelRankingAveragePrecision": st["lrap"] / st["n"],
+        "LabelRankingLoss": st["lrl"] / st["n"],
+        "CriticalSuccessIndex": st["tp"] / (st["tp"] + st["fp_fn"]),
+    }
+
+
+_D_PARTS = {"D1": (_d1_collection, _d1_batches, _d1_stats, _d1_values),
+            "D2": (_d2_collection, _d2_batches, _d2_stats, _d2_values)}
+
+
+class _CountUpdates:
+    """Counts metric updates (``Metric._run_update_on_state``: every forward runs its update there) while active."""
+
+    def __enter__(self):
+        from metrics_tpu_torch.core.metric import Metric
+
+        self.calls = [0]
+        self._real = real = Metric._run_update_on_state
+        calls = self.calls
+
+        def counting(metric, state, *args, **kwargs):
+            calls[0] += 1
+            return real(metric, state, *args, **kwargs)
+
+        Metric._run_update_on_state = counting
+        return self.calls
+
+    def __exit__(self, *exc):
+        from metrics_tpu_torch.core.metric import Metric
+
+        Metric._run_update_on_state = self._real
+
+
+def _syncs_per_epoch(collection):
+    """Collective calls one epoch sync makes: one ``all_reduce`` per state dtype of each compute group."""
+    return sum(len({v.dtype for v in collection[rep]._current_state().values()}) for rep in collection.compute_groups)
+
+
+def run_path_d(device):
+    """Path D inside the caller's process group: D1 and D2 forward with ``dist_sync_on_step``, timed,
+    the updates of each step and the collective calls of the epoch compute counted."""
+    import torch
+
+    runs = {}
+    for name, (build, make, _, _) in _D_PARTS.items():
+        host = make()
+        batches = [(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device)) for p, t in host]
+        col = build(device, dist_sync_on_step=True)
+        updates = []
+        with _CountUpdates() as calls:
+            values, ms = _run_steps(col, batches, on_step=lambda i: updates.append(calls[0]))
+        epoch_ms = []
+        for _ in range(2):  # the first epoch compute, then the same again with the compute caches cleared
+            for m in col.values():
+                m._computed = None
+            t0 = time.perf_counter()
+            with _CountCollectives() as collectives:
+                epoch = col.compute()
+                _sync(device)
+            epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = {"host": host, "values": values, "ms": ms, "updates": updates, "epoch": epoch,
+                      "epoch_ms": epoch_ms, "collectives": dict(collectives), "expected": _syncs_per_epoch(col),
+                      "collection": col, "profile": _profile_d_step(build(device, dist_sync_on_step=True), batches[0])}
+    return runs
+
+
+def _profile_d_step(collection, batch):
+    """Device operations of one forward step (``torch.profiler``, 5 steps of a fresh collection) and the
+    synchronizing CUDA calls of one step (``torch.cuda.set_sync_debug_mode``); None off the card."""
+    import warnings
+
+    import torch
+
+    if batch[0].device.type != "cuda":
+        return None
+    from metrics_tpu_torch.tools.cuda_timing import device_breakdown
+
+    rows = device_breakdown(lambda: collection(*batch), calls=5)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            collection(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message).lower() for w in caught)
+    return {"device_ms": sum(r["us_per_call"] for r in rows) / 1e3, "ops": sum(r["per_call"] for r in rows),
+            "host_syncs": syncs, "top": rows[:8]}
+
+
+def _d_close(label, got, cpu, oracle):
+    g = got.item()
+    atol = ATOL_HAMMING if "Hamming" in label else 0.0
+    rtol = 0.0 if atol else RTOL_D
+    if not (np.isclose(g, cpu.item(), rtol=rtol, atol=atol) and np.isclose(g, oracle, rtol=rtol, atol=atol)):
+        raise AssertionError(f"{label}: card {g} vs CPU {cpu.item()} vs float64 oracle {oracle}")
+    return 0.0 if atol else abs(g - oracle) / abs(oracle)
+
+
+def check_path_d(result):
+    """Each part against the CPU run and the float64 oracle, per step and at the epoch; counts exactly."""
+    import torch
+
+    timings = {}
+    for name, (build, _, stats, values_of) in _D_PARTS.items():
+        run = result[name]
+        cpu = build("cpu", dist_sync_on_step=True)
+        groups = len(cpu.compute_groups)
+        steps = len(run["host"])
+        total, worst = None, 0.0
+        for step, ((p, t), got) in enumerate(zip(run["host"], run["values"])):
+            want = cpu(torch.from_numpy(p), torch.from_numpy(t))
+            st = stats(p, t)
+            total = st if total is None else {k: total[k] + v for k, v in st.items()}
+            oracle = values_of(st)
+            for k, v in got.items():
+                if k == "ConfusionMatrix":
+                    exact = np.array_equal(v.cpu().numpy(), oracle[k].astype(np.float32))
+                    if not (torch.equal(v.cpu(), want[k]) and exact):
+                        raise AssertionError(f"path {name} step {step}: confusion matrix differs from the CPU / oracle")
+                    continue
+                worst = max(worst, _d_close(f"path {name} step {step} {k}", v, want[k], oracle[k]))
+        print(f"  ok: path {name} per-step values equal the CPU run and the float64 oracle (rtol {RTOL_D},"
+              f" Hamming atol {ATOL_HAMMING:.3g}; max rel diff to the oracle of the others {worst:.3g})")
+        oracle, want = values_of(total), cpu.compute()
+        for k, v in run["epoch"].items():
+            if k == "ConfusionMatrix":
+                _check(np.array_equal(v.cpu().numpy(), oracle[k].astype(np.float32))
+                       and np.array_equal(run["collection"][k].confmat.cpu().numpy(), total["confmat"]),
+                       f"path {name} epoch confusion matrix ({int(total['confmat'].sum())} pairs) equals the numpy"
+                       " bincount oracle exactly")
+                continue
+            rel = _d_close(f"path {name} epoch {k}", v, want[k], oracle[k])
+            print(f"  ok: path {name} epoch {k} = {v.item():.7g} (oracle {oracle[k]:.7g}, rel diff {rel:.3g})")
+        for k, m in run["collection"].items():
+            for state, value in m._current_state().items():
+                ref = getattr(cpu[k], state)
+                same = (torch.equal(value.cpu(), ref) if not value.is_floating_point()
+                        else torch.allclose(value.cpu(), ref, rtol=RTOL_D, atol=0))
+                if not same:
+                    raise AssertionError(f"path {name} {k}.{state} differs between the card and the CPU run")
+        if name == "D2":
+            csi = run["collection"]["CriticalSuccessIndex"]
+            _check(int(csi.tp) == total["tp"] and int(csi.fp_fn) == total["fp_fn"],
+                   f"path D2 CSI counts equal the oracle (tp {total['tp']}, fp + fn {total['fp_fn']})")
+        print(f"  ok: path {name} count states equal the CPU run exactly, float sums to rtol {RTOL_D}")
+        _check(run["updates"] == [groups * (i + 1) for i in range(steps)],
+               f"path {name}: {groups} updates a step, one per compute group of the CPU run ({cpu.compute_groups})")
+        calls = run["collectives"]["all_reduce"]
+        _check(calls == run["expected"] and run["collectives"]["all_gather"] == 0,
+               f"path {name} epoch compute: {calls} all_reduce calls for {groups} compute groups, one sync a group"
+               " (one call per state dtype in it)")
+        ms = run["ms"]
+        print(f"[7] path {name}: {steps} steps of {tuple(run['host'][0][0].shape)}: median {statistics.median(ms):.3f}"
+              f" ms/step (first step {ms[0]:.1f} ms); epoch compute {run['epoch_ms'][0]:.2f} ms"
+              f" (again: {run['epoch_ms'][1]:.2f} ms); epoch all_reduce calls {calls}")
+        prof = run["profile"]
+        if prof is not None:
+            print(f"    path {name} step, profiled: {prof['device_ms']:.3f} ms device time a step"
+                  f" ({100 * prof['device_ms'] / statistics.median(ms):.1f}% of the median step),"
+                  f" {prof['ops']:g} device operations, {prof['host_syncs']} synchronizing CUDA calls")
+            for op in prof["top"]:
+                print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
+        timings[name] = {"ms_per_step": statistics.median(ms), "first_step_ms": ms[0], "epoch_ms": run["epoch_ms"],
+                         "epoch_all_reduce": calls, "compute_groups": groups, "step_profile": prof}
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -671,6 +1009,8 @@ def main() -> int:
                           " is the plain version)",
         "path_a_ms_per_step": paths["a_ms"],
         "path_b_ms_per_step": paths["b_ms"],
+        "path_d1_ms_per_step": paths["d"]["D1"]["ms_per_step"],
+        "path_d2_ms_per_step": paths["d"]["D2"]["ms_per_step"],
     }
 
     print(json.dumps({"kernels": [kernel]}))

@@ -1,0 +1,61 @@
+"""CohenKappa module.
+
+Counterpart of ``metrics_tpu/classification/cohen_kappa.py``: a ``(C, C)``
+int64 "sum" state. It declares no compute-group key, as in the JAX package.
+"""
+from typing import Any, Callable, Optional, Union
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.functional.classification.cohen_kappa import _cohen_kappa_compute, _cohen_kappa_update
+
+
+class CohenKappa(Metric):
+    r"""Cohen's kappa, accumulated over batches via the confusion matrix.
+
+    Example:
+        >>> import torch
+        >>> target = torch.tensor([1, 1, 0, 0])
+        >>> preds = torch.tensor([0, 1, 0, 0])
+        >>> cohenkappa = CohenKappa(num_classes=2, device="cpu")
+        >>> float(cohenkappa(preds, target))
+        0.5
+    """
+
+    def __init__(
+        self,
+        num_classes: int,
+        weights: Optional[str] = None,
+        threshold: float = 0.5,
+        compute_on_step: bool = True,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        super().__init__(
+            compute_on_step=compute_on_step,
+            dist_sync_on_step=dist_sync_on_step,
+            process_group=process_group,
+            dist_sync_fn=dist_sync_fn,
+            device=device,
+        )
+        self.num_classes = num_classes
+        self.weights = weights
+        self.threshold = threshold
+
+        allowed_weights = ("linear", "quadratic", "none", None)
+        if self.weights not in allowed_weights:
+            raise ValueError(f"Argument weights needs to one of the following: {allowed_weights}")
+
+        zeros = torch.zeros((num_classes, num_classes), dtype=torch.int64)
+        self.add_state("confmat", default=zeros, dist_reduce_fx="sum")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        self.confmat = self.confmat + _cohen_kappa_update(preds, target, self.num_classes, self.threshold)
+
+    def compute(self) -> Tensor:
+        weights = None if self.weights == "none" else self.weights
+        return _cohen_kappa_compute(self.confmat, weights)

@@ -346,3 +346,30 @@ def _input_format_classification(
     if table is not None:
         table[key] = (*memo_pin, result)
     return result
+
+
+def _input_format_classification_one_hot(
+    num_classes: int,
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    multilabel: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """Convert inputs to the one-hot ``(C, N*...)`` layout."""
+    if not (preds.ndim == target.ndim or preds.ndim == target.ndim + 1):
+        raise ValueError("preds and target must have same number of dimensions, or one additional dimension for preds")
+
+    if preds.ndim == target.ndim + 1:
+        preds = torch.argmax(preds, dim=1)
+
+    if preds.ndim == target.ndim and not _is_float(preds) and num_classes > 1 and not multilabel:
+        preds = to_onehot(preds, num_classes=num_classes)
+        target = to_onehot(target, num_classes=num_classes)
+    elif preds.ndim == target.ndim and _is_float(preds):
+        preds = (preds >= threshold).to(torch.int32)
+
+    if preds.ndim > 1:
+        preds = torch.swapaxes(preds, 1, 0)
+        target = torch.swapaxes(target, 1, 0)
+
+    return preds.reshape(num_classes, -1), target.reshape(num_classes, -1)
