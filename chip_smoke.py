@@ -72,7 +72,29 @@ Phases, in order; each raises on failure and none is caught:
    hand-written kernel: its counting is torch ops (``bincount``,
    ``index_add_``, elementwise compares, an einsum), as the JAX package's is
    XLA, so the ``kernels`` line lists K1 alone.
-8. The ``kernels`` JSON line, then the device JSON as the last line.
+8. Path E, regression, in the same group with ``device="cuda"`` (nothing caught). E1: the error,
+   moment and correlation collection (MSE, MAE, MSLE, MAPE, SMAPE, WMAPE, ExplainedVariance,
+   R2Score, RelativeSquaredError, PearsonCorrcoef, ConcordanceCorrCoef, MinkowskiDistance(p=3),
+   LogCoshError, TweedieDevianceScore(power=1.5)) with ``dist_sync_on_step``, 10 steps of
+   4,194,304 float32 pairs (lognormal targets, predictions within exp(0.1 N(0, 1)) of them): an
+   epoch of 41,943,040 samples, past 2**24, so Pearson's float32-count warning fires and the int64
+   counts are checked. E2: ``MetricCollection([KLDivergence, CosineSimilarity])``, 10 steps of
+   4,096 x 1,000 softmax rows. E3, synced at ``compute()``: ``SpearmanCorrcoef`` over 2 steps of
+   4,194,304 scores (an epoch of 2**23) and ``KendallRankCorrCoef`` over 4 steps of 4,096 (an epoch
+   of 16,384), scores on a 2**-12 grid (tied), each with list states and with ``capacity``. E4, with
+   TF32 allowed for convolutions and matmuls (the user's default), the image collection (SSIM,
+   MultiScaleSSIM and PSNR at ``data_range=1.0``, UQI, TotalVariation of the prediction,
+   SpectralAngleMapper, ERGAS) with ``dist_sync_on_step``, 10 steps of 16 x 3 x 512 x 512 images
+   (a smooth seeded field and the same plus N(0, 0.05^2) noise, clipped to [0, 1]), then 2 steps of
+   ``SSIM()`` whose stored 4-D images are gathered at ``compute()``. Every count state equals the
+   CPU run of the port exactly; every value equals the CPU run and a float64 numpy / scipy oracle
+   (``np`` sums, ``scipy.stats.spearmanr`` / ``kendalltau``, SSIM by ``scipy.ndimage.correlate1d``
+   with ``mode="mirror"``) to the tolerances stated below. E4's CPU run repeats the first 2 steps
+   (the full 10 take minutes on the host); the oracle holds every step and the epoch. Each step makes
+   one update per compute group, and the epoch ``compute()`` one sync per group. Prints ms per step,
+   epoch ``compute()`` ms and a profiled E1 and E4 step. Path E runs no hand-written kernel: the JAX
+   package computes regression in XLA, never Pallas, so the ``kernels`` line lists K1 alone.
+9. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -106,6 +128,24 @@ RTOL_D = 1e-5
 # Hamming is 1 - correct / (N * C) with both counts rounded to float32 (the epoch's
 # 8.2e7 exceeds 2**24): a few ulps of 1.0 absolute, not relative to a value near 6e-4
 ATOL_HAMMING = 4 * 2.0**-24
+E_STEPS = 10
+E1_N = 4_194_304  # path B's batch; a power of two keeps the float32 counts the reference carries exact (2**22 k)
+E2_BATCH, E2_DIM = 4_096, 1_000  # path A's batch
+E3_SPEARMAN = (2, 4_194_304)  # steps, batch: an epoch of 2**23, where every rank and half-rank is exact in float32
+E3_KENDALL = (4, 4_096)  # an epoch of 16,384 samples: 134 million pairs
+E4_SHAPE = (16, 3, 512, 512)  # 512 x 512 RGB crops, as restoration and super-resolution evals score them
+E4_STORED_STEPS = 2  # SSIM() without data_range: the stored-image mode
+E4_CPU_STEPS = 2  # E4 steps the CPU run repeats; the float64 oracle holds every step
+# Path E, card against CPU and both against the float64 oracle: float32 sums over up to 4M terms a step
+# in another order, and R2 / ExplainedVariance / RSE from float32 raw moments (lognormal targets:
+# E[t^2] / Var t = 1.6, so the cancellation costs one bit)
+RTOL_E = 1e-5
+RTOL_KENDALL = 1e-6  # tau from exact int64 pair counts, rounded once to float32
+RTOL_E4 = 1e-5  # PSNR, TV, SAM, ERGAS: float32 sums over 12.6M terms a step in another order
+# SSIM, MS-SSIM and UQI keep the reference's float32 moment maps, var = E[x^2] - mu^2: second moments of
+# ~0.3 carry absolute errors of ~1e-7, against a denominator var_p + var_t + C2 that may be as small as
+# C2 = 9e-4 on the smooth target, so a value in [0, 1] is held to 1e-4 absolute
+ATOL_SSIM = 1e-4
 
 
 def _check(ok, what):
@@ -403,6 +443,7 @@ def phase_paths():
         composed = _check_composition(dev, a_batches[:5])
         path_c = run_path_c(dev)
         path_d = run_path_d(dev)
+        path_e = run_path_e(dev)
     finally:
         dist.destroy_process_group()
 
@@ -423,8 +464,9 @@ def phase_paths():
     _check_path_b(b_batches, b_values, b_epoch, col_b)
     check_path_c(path_c)
     d_timings = check_path_d(path_d)
+    e_timings = check_path_e(path_e)
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
-            "c": path_c["timings"], "d": d_timings}
+            "c": path_c["timings"], "d": d_timings, "e": e_timings}
 
 
 def _profile_step(collection, batch):
@@ -559,16 +601,8 @@ def run_path_c(device):
     for mode, kw in (("list", {}), ("capacity", {"capacity": C_CAPACITY})):
         col = _curve_collection(device, **kw)
         values, ms = _run_steps(col, batches)
-        epoch_ms = []
-        for _ in range(2):  # the first epoch compute, then the same again with the compute caches cleared
-            for m in col.values():
-                m._computed = None
-            t0 = time.perf_counter()
-            with _CountCollectives() as calls:
-                epoch = col.compute()
-                _sync(device)
-            epoch_ms.append((time.perf_counter() - t0) * 1e3)
-        runs[mode] = {"values": values, "ms": ms, "epoch": epoch, "epoch_ms": epoch_ms, "calls": dict(calls),
+        epoch, epoch_ms, calls, _ = _epoch_timed(col, device)
+        runs[mode] = {"values": values, "ms": ms, "epoch": epoch, "epoch_ms": epoch_ms, "calls": calls,
                       "collection": col}
     profile = _profile_epoch(runs["list"]["collection"], device)
     import metrics_tpu_torch as pt
@@ -590,17 +624,52 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def _run_steps(collection, batches, on_step=None):
-    """Per-step values (tensors), per-step milliseconds (host clock, synchronized)."""
+def _run_steps(collection, batches, on_step=None, call=None):
+    """Per-step values (tensors), per-step milliseconds (host clock, synchronized). A step is
+    ``call(collection, batch)``, by default ``collection(*batch)``."""
     values, ms = [], []
-    for i, (preds, target) in enumerate(batches):
+    for i, batch in enumerate(batches):
         t0 = time.perf_counter()
-        values.append(collection(preds, target))
-        _sync(preds.device)
+        values.append(collection(*batch) if call is None else call(collection, batch))
+        _sync(batch[0].device)
         ms.append((time.perf_counter() - t0) * 1e3)
         if on_step is not None:
             on_step(i)
     return values, ms
+
+
+def _forward_counted(collection, batches, call=None, on_step=None):
+    """``_run_steps`` counting updates: (values, ms per step, cumulative updates after each step)."""
+    updates = []
+
+    def step_done(i):
+        updates.append(calls[0])
+        if on_step is not None:
+            on_step(i)
+
+    with _CountUpdates() as calls:
+        values, ms = _run_steps(collection, batches, on_step=step_done, call=call)
+    return values, ms, updates
+
+
+def _epoch_timed(collection, device, repeats=2):
+    """Epoch ``compute()`` ``repeats`` times with the compute caches cleared: the values (with the
+    warnings they raised), milliseconds, and the collective calls of the first."""
+    import warnings
+
+    ms, counted = [], None
+    for _ in range(repeats):
+        for m in collection.values():
+            m._computed = None
+        t0 = time.perf_counter()
+        with _CountCollectives() as collectives, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            epoch = collection.compute()
+            _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if counted is None:
+            counted, said = dict(collectives), [str(w.message) for w in caught]
+    return epoch, ms, counted, said
 
 
 def _profile_epoch(collection, device):
@@ -836,8 +905,27 @@ class _CountUpdates:
 
 
 def _syncs_per_epoch(collection):
-    """Collective calls one epoch sync makes: one ``all_reduce`` per state dtype of each compute group."""
-    return sum(len({v.dtype for v in collection[rep]._current_state().values()}) for rep in collection.compute_groups)
+    """Collective calls one epoch sync makes, each compute group syncing once: an ``all_reduce`` per
+    (dtype, operation) bucket of its sum / min / max states, and for its gather states (lists, buffers,
+    callable reductions) one layout ``all_gather`` plus one per dtype."""
+    import torch
+
+    from metrics_tpu_torch.parallel.buffer import PaddedBuffer
+
+    calls = {"all_reduce": 0, "all_gather": 0}
+    for rep in collection.compute_groups:
+        m = collection[rep]
+        reduce_buckets, gather_dtypes = set(), set()
+        for name, value in m._current_state().items():
+            fx = m._reductions[name]
+            if isinstance(value, (list, PaddedBuffer)) or fx not in ("sum", "mean", "min", "max"):
+                gather_dtypes.add(m._cat_layouts[name][0] if isinstance(value, list) else value.dtype if
+                                  isinstance(value, torch.Tensor) else value.data.dtype)
+            else:
+                reduce_buckets.add((value.dtype, "sum" if fx == "mean" else fx))
+        calls["all_reduce"] += len(reduce_buckets)
+        calls["all_gather"] += 1 + len(gather_dtypes) if gather_dtypes else 0
+    return calls
 
 
 def run_path_d(device):
@@ -850,47 +938,42 @@ def run_path_d(device):
         host = make()
         batches = [(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device)) for p, t in host]
         col = build(device, dist_sync_on_step=True)
-        updates = []
-        with _CountUpdates() as calls:
-            values, ms = _run_steps(col, batches, on_step=lambda i: updates.append(calls[0]))
-        epoch_ms = []
-        for _ in range(2):  # the first epoch compute, then the same again with the compute caches cleared
-            for m in col.values():
-                m._computed = None
-            t0 = time.perf_counter()
-            with _CountCollectives() as collectives:
-                epoch = col.compute()
-                _sync(device)
-            epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        values, ms, updates = _forward_counted(col, batches)
+        epoch, epoch_ms, collectives, _ = _epoch_timed(col, device)
+        fresh = build(device, dist_sync_on_step=True)
         runs[name] = {"host": host, "values": values, "ms": ms, "updates": updates, "epoch": epoch,
-                      "epoch_ms": epoch_ms, "collectives": dict(collectives), "expected": _syncs_per_epoch(col),
-                      "collection": col, "profile": _profile_d_step(build(device, dist_sync_on_step=True), batches[0])}
+                      "epoch_ms": epoch_ms, "collectives": collectives, "expected": _syncs_per_epoch(col),
+                      "collection": col,
+                      "profile": _profile_call(lambda: fresh(*batches[0])) if device.type == "cuda" else None}
     return runs
 
 
-def _profile_d_step(collection, batch):
-    """Device operations of one forward step (``torch.profiler``, 5 steps of a fresh collection) and the
-    synchronizing CUDA calls of one step (``torch.cuda.set_sync_debug_mode``); None off the card."""
+def _profile_call(step, calls=5):
+    """Device operations of one ``step()`` (``torch.profiler`` over ``calls`` calls) and the synchronizing
+    CUDA calls of one more."""
     import warnings
 
     import torch
 
-    if batch[0].device.type != "cuda":
-        return None
     from metrics_tpu_torch.tools.cuda_timing import device_breakdown
 
-    rows = device_breakdown(lambda: collection(*batch), calls=5)
+    rows = device_breakdown(step, calls=calls)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            collection(*batch)
+            step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message).lower() for w in caught)
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    sites = {}
+    for w in syncs:  # the Python line that made each synchronizing call
+        site = f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
     return {"device_ms": sum(r["us_per_call"] for r in rows) / 1e3, "ops": sum(r["per_call"] for r in rows),
-            "host_syncs": syncs, "top": rows[:8]}
+            "host_syncs": len(syncs), "sync_sites": sorted(sites.items(), key=lambda kv: -kv[1])[:8],
+            "top": rows[:8]}
 
 
 def _d_close(label, got, cpu, oracle):
@@ -952,7 +1035,7 @@ def check_path_d(result):
         _check(run["updates"] == [groups * (i + 1) for i in range(steps)],
                f"path {name}: {groups} updates a step, one per compute group of the CPU run ({cpu.compute_groups})")
         calls = run["collectives"]["all_reduce"]
-        _check(calls == run["expected"] and run["collectives"]["all_gather"] == 0,
+        _check(run["collectives"] == run["expected"] and run["collectives"]["all_gather"] == 0,
                f"path {name} epoch compute: {calls} all_reduce calls for {groups} compute groups, one sync a group"
                " (one call per state dtype in it)")
         ms = run["ms"]
@@ -968,6 +1051,511 @@ def check_path_d(result):
                 print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
         timings[name] = {"ms_per_step": statistics.median(ms), "first_step_ms": ms[0], "epoch_ms": run["epoch_ms"],
                          "epoch_all_reduce": calls, "compute_groups": groups, "step_profile": prof}
+    return timings
+
+
+# ------------------------------------------------------------------------------------------- path E
+def _e1_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection([
+        pt.MeanSquaredError(device=device, **kw),
+        pt.MeanAbsoluteError(device=device, **kw),
+        pt.MeanSquaredLogError(device=device, **kw),
+        pt.MeanAbsolutePercentageError(device=device, **kw),
+        pt.SymmetricMeanAbsolutePercentageError(device=device, **kw),
+        pt.WeightedMeanAbsolutePercentageError(device=device, **kw),
+        pt.ExplainedVariance(device=device, **kw),
+        pt.R2Score(device=device, **kw),
+        pt.RelativeSquaredError(device=device, **kw),
+        pt.PearsonCorrcoef(device=device, **kw),
+        pt.ConcordanceCorrCoef(device=device, **kw),
+        pt.MinkowskiDistance(p=3, device=device, **kw),
+        pt.LogCoshError(device=device, **kw),
+        pt.TweedieDevianceScore(power=1.5, device=device, **kw),
+    ])
+
+
+def _e2_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection([pt.KLDivergence(device=device, **kw), pt.CosineSimilarity(device=device, **kw)])
+
+
+def _e4_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection([
+        pt.SSIM(data_range=1.0, device=device, **kw),
+        pt.MultiScaleSSIM(data_range=1.0, device=device, **kw),
+        pt.PSNR(data_range=1.0, device=device, **kw),
+        pt.UniversalImageQualityIndex(device=device, **kw),
+        pt.TotalVariation(device=device, **kw),
+        pt.SpectralAngleMapper(device=device, **kw),
+        pt.ErrorRelativeGlobalDimensionlessSynthesis(device=device, **kw),
+    ])
+
+
+def _e1_batches():
+    """Lognormal targets (positive, skewed: prices, durations), predictions within exp(0.1 N(0, 1)) of them."""
+    rng = np.random.default_rng(6)
+    batches = []
+    for _ in range(E_STEPS):
+        target = rng.lognormal(0.0, 1.0, E1_N).astype(np.float32)
+        batches.append(((target * np.exp(0.1 * rng.standard_normal(E1_N))).astype(np.float32), target))
+    return batches
+
+
+def _e2_batches():
+    """Softmax rows: q is p's logits moved by N(0, 0.5^2)."""
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(E_STEPS):
+        logits = rng.standard_normal((E2_BATCH, E2_DIM))
+        p = np.exp(logits - logits.max(1, keepdims=True))
+        logits_q = logits + 0.5 * rng.standard_normal(logits.shape)
+        q = np.exp(logits_q - logits_q.max(1, keepdims=True))
+        batches.append(((p / p.sum(1, keepdims=True)).astype(np.float32),
+                        (q / q.sum(1, keepdims=True)).astype(np.float32)))
+    return batches
+
+
+def _e3_batches(steps, n, seed):
+    """Scores on a 2**-12 grid (tied), the target a noisy copy on the same grid."""
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(steps):
+        x = np.round(rng.random(n) * 4096) / 4096
+        y = np.round((x + 0.5 * rng.standard_normal(n)) * 4096) / 4096
+        batches.append((x.astype(np.float32), y.astype(np.float32)))
+    return batches
+
+
+def _e4_images(rng, shape):
+    """A smooth field in [0.14, 0.86] (three random sinusoid products a channel) and the same plus
+    N(0, 0.05^2) noise, clipped to [0, 1]."""
+    n, c, h, w = shape
+    yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    target = np.full(shape, 0.5, np.float32)
+    for _ in range(3):
+        fy, fx, phase = (rng.uniform(lo, hi, (n, c, 1, 1)).astype(np.float32) for lo, hi in ((2, 12), (2, 12), (0, 6.3)))
+        target += 0.12 * np.sin(fy * yy + phase) * np.cos(fx * xx - phase)
+    preds = np.clip(target + 0.05 * rng.standard_normal(shape, dtype=np.float32), 0, 1)
+    return preds, target
+
+
+def _e4_batches(steps, seed):
+    rng = np.random.default_rng(seed)
+    return [_e4_images(rng, E4_SHAPE) for _ in range(steps)]
+
+
+def _to(device, batches):
+    import torch
+
+    return [tuple(torch.from_numpy(x).to(device) for x in b) for b in batches]
+
+
+def _e4_call(collection, batch):
+    """The image collection's step: ``TotalVariation`` scores the prediction (its ``img``), the rest the pair."""
+    preds, target = batch
+    return collection(preds=preds, target=target, img=preds)
+
+
+def _count_states(metric):
+    import torch
+
+    return {k: v.clone() for k, v in metric._current_state().items()
+            if isinstance(v, torch.Tensor) and not v.is_floating_point()}
+
+
+def run_path_e(device):
+    """Path E inside the caller's process group: E1, E2 and E4 forward with ``dist_sync_on_step``, E3 synced
+    at ``compute()``; timed, updates and epoch collectives counted, an E1 and an E4 step profiled."""
+    import torch
+
+    out = {}
+    for name, build, make in (("E1", _e1_collection, _e1_batches), ("E2", _e2_collection, _e2_batches)):
+        host = make()
+        col = build(device, dist_sync_on_step=True)
+        values, ms, updates = _forward_counted(col, _to(device, host))
+        epoch, epoch_ms, collectives, said = _epoch_timed(col, device)
+        out[name] = {"host": host, "collection": col, "values": values, "ms": ms, "updates": updates,
+                     "epoch": epoch, "epoch_ms": epoch_ms, "collectives": collectives, "warnings": said,
+                     "expected": _syncs_per_epoch(col)}
+    if device.type == "cuda":
+        batch = _to(device, out["E1"]["host"][:1])[0]
+        fresh = _e1_collection(device, dist_sync_on_step=True)
+        out["E1"]["profile"] = _profile_call(lambda: fresh(*batch))
+
+    import metrics_tpu_torch as pt
+
+    e3 = {}
+    for kind, cls, (steps, n), seed, capacity in (("Spearman", pt.SpearmanCorrcoef, E3_SPEARMAN, 9, 2**23),
+                                                  ("Kendall", pt.KendallRankCorrCoef, E3_KENDALL, 10, 16_384)):
+        host = _e3_batches(steps, n, seed)
+        batches = _to(device, host)
+        for mode, kw in (("list", {}), ("capacity", {"capacity": min(capacity, steps * n)})):
+            col = pt.MetricCollection([cls(device=device, **kw)])
+            values, ms, updates = _forward_counted(col, batches)
+            epoch, epoch_ms, collectives, _ = _epoch_timed(col, device)
+            e3[f"{kind} {mode}"] = {"host": host, "collection": col, "values": values, "ms": ms, "updates": updates,
+                                    "epoch": epoch, "epoch_ms": epoch_ms, "collectives": collectives,
+                                    "expected": _syncs_per_epoch(col)}
+    out["E3"] = e3
+
+    # E4 runs under the precision flags a user has by default (TF32 allowed for convolutions and, at
+    # "high", for matmuls): the SSIM family must not depend on them
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        host = _e4_batches(E_STEPS, 11)
+        col = _e4_collection(device, dist_sync_on_step=True)
+        snapshot = {}
+
+        def keep_counts(i):  # the count states at the end of the steps the CPU run repeats
+            if i == E4_CPU_STEPS - 1:
+                snapshot.update({k: _count_states(m) for k, m in col.items()})
+
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        values, ms, updates = _forward_counted(col, _to(device, host), call=_e4_call, on_step=keep_counts)
+        peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+        epoch, epoch_ms, collectives, said = _epoch_timed(col, device)
+        out["E4"] = {"host": host, "collection": col, "values": values, "ms": ms, "updates": updates,
+                     "epoch": epoch, "epoch_ms": epoch_ms, "collectives": collectives, "warnings": said,
+                     "expected": _syncs_per_epoch(col), "counts_at_cpu_steps": snapshot, "peak_bytes": peak}
+        if device.type == "cuda":
+            batch = _to(device, host[:1])[0]
+            fresh = _e4_collection(device, dist_sync_on_step=True)
+            out["E4"]["profile"] = _profile_call(lambda: _e4_call(fresh, batch), calls=3)
+        stored_host = _e4_batches(E4_STORED_STEPS, 12)
+        stored = pt.MetricCollection([pt.SSIM(device=device)])
+        values, ms, updates = _forward_counted(stored, _to(device, stored_host))
+        epoch, epoch_ms, collectives, _ = _epoch_timed(stored, device)
+        out["E4 stored"] = {"host": stored_host, "collection": stored, "values": values, "ms": ms, "updates": updates,
+                            "epoch": epoch, "epoch_ms": epoch_ms, "collectives": collectives,
+                            "expected": _syncs_per_epoch(stored)}
+        out["flags_kept"] = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                             torch.get_float32_matmul_precision()) == (True, True, "high")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])
+    return out
+
+
+# ---- path E's float64 oracles: numpy and scipy, no code shared with the port
+def _e1_stats(p, t):
+    """Sufficient statistics of one E1 batch in float64; they add across batches."""
+    p, t = p.astype(np.float64), t.astype(np.float64)
+    d = p - t
+    a = np.abs(d)
+    eps = 1.17e-6  # MAPE's clamp on the denominator
+    return {
+        "n": float(len(t)), "sse": (d * d).sum(), "sae": a.sum(),
+        "ssle": ((np.log1p(p) - np.log1p(t)) ** 2).sum(),
+        "mape": (a / np.maximum(np.abs(t), eps)).sum(), "smape": (2 * a / np.maximum(np.abs(p) + np.abs(t), eps)).sum(),
+        "abs_t": np.abs(t).sum(), "st": t.sum(), "stt": (t * t).sum(), "sp": p.sum(), "spp": (p * p).sum(),
+        "spt": (p * t).sum(), "cube": (a**3).sum(), "logcosh": (a + np.log1p(np.exp(-2 * a)) - np.log(2)).sum(),
+        # Tweedie deviance at power 1.5: 2 (y^0.5 / -0.25 + 2 y mu^-0.5 + 2 mu^0.5)
+        "tweedie": (2 * (-4 * np.sqrt(t) + 2 * t / np.sqrt(p) + 2 * np.sqrt(p))).sum(),
+    }
+
+
+def _e1_values(s):
+    n = s["n"]
+    mp, mt = s["sp"] / n, s["st"] / n
+    var_p, var_t = s["spp"] / n - mp**2, s["stt"] / n - mt**2
+    cov = s["spt"] / n - mp * mt
+    ss_tot = s["stt"] - s["st"] ** 2 / n
+    mean_err = (s["st"] - s["sp"]) / n
+    return {
+        "MeanSquaredError": s["sse"] / n, "MeanAbsoluteError": s["sae"] / n, "MeanSquaredLogError": s["ssle"] / n,
+        "MeanAbsolutePercentageError": s["mape"] / n, "SymmetricMeanAbsolutePercentageError": s["smape"] / n,
+        "WeightedMeanAbsolutePercentageError": s["sae"] / s["abs_t"],
+        "ExplainedVariance": 1 - (s["sse"] / n - mean_err**2) / var_t,
+        "R2Score": 1 - s["sse"] / ss_tot, "RelativeSquaredError": s["sse"] / ss_tot,
+        "PearsonCorrcoef": cov / np.sqrt(var_p * var_t),
+        "ConcordanceCorrCoef": 2 * cov / (var_p + var_t + (mp - mt) ** 2),
+        "MinkowskiDistance": s["cube"] ** (1 / 3), "LogCoshError": s["logcosh"] / n,
+        "TweedieDevianceScore": s["tweedie"] / n,
+    }
+
+
+def _e2_stats(p, q):
+    p, q = p.astype(np.float64), q.astype(np.float64)
+    p, q = p / p.sum(1, keepdims=True), q / q.sum(1, keepdims=True)
+    cos = (p * q).sum(1) / (np.linalg.norm(p, axis=1) * np.linalg.norm(q, axis=1))
+    return {"n": float(len(p)), "kl": (p * np.log(p / q)).sum(), "cos": cos.sum()}
+
+
+def _e2_values(s):
+    return {"KLDivergence": s["kl"] / s["n"], "CosineSimilarity": s["cos"] / s["n"]}
+
+
+def _window(k, sigma):
+    x = np.arange(k) - (k - 1) / 2
+    g = np.exp(-((x / sigma) ** 2) / 2)
+    return g / g.sum()
+
+
+_WINDOW = _window(11, 1.5)
+
+
+def _blur(x):
+    """The 11 x 11, sigma 1.5 gaussian over H and W, ``mode="mirror"`` (the edge pixel not repeated)."""
+    import scipy.ndimage as ndi
+
+    return ndi.correlate1d(ndi.correlate1d(x, _WINDOW, axis=-2, mode="mirror"), _WINDOW, axis=-1, mode="mirror")
+
+
+def _moments(p, t):
+    mu_p, mu_t = _blur(p), _blur(t)
+    return mu_p, mu_t, _blur(p * p) - mu_p**2, _blur(t * t) - mu_t**2, _blur(p * t) - mu_p * mu_t
+
+
+def _crop(x):
+    return x[..., 5:-5, 5:-5]
+
+
+def _ssim_maps(p, t, data_range=1.0):
+    mu_p, mu_t, var_p, var_t, cov = _moments(p, t)
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    cs = (2 * cov + c2) / (var_p + var_t + c2)
+    return _crop((2 * mu_p * mu_t + c1) / (mu_p**2 + mu_t**2 + c1) * cs), _crop(cs)
+
+
+def _e4_chunk_stats(p, t):
+    """Per-image float64 values of one chunk of images: SSIM map sum, MS-SSIM, UQI map sum, SSE, TV, SAM,
+    ERGAS."""
+    p, t = p.astype(np.float64), t.astype(np.float64)
+    ssim_map, _ = _ssim_maps(p, t)
+    betas = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+    ms, sp, st = np.ones(len(p)), p, t
+    for scale, beta in enumerate(betas):
+        full, cs = _ssim_maps(sp, st)
+        value = (full if scale == len(betas) - 1 else cs).mean(axis=(1, 2, 3))
+        ms *= np.maximum(value, 0) ** beta
+        h, w = sp.shape[-2] // 2 * 2, sp.shape[-1] // 2 * 2
+        sp, st = (x[..., :h, :w].reshape(*x.shape[:2], h // 2, 2, w // 2, 2).mean(axis=(3, 5)) for x in (sp, st))
+    mu_p, mu_t, var_p, var_t, cov = _moments(p, t)
+    uqi = _crop(4 * cov * mu_p * mu_t / ((var_p + var_t) * (mu_p**2 + mu_t**2)))
+    d = p - t
+    cos = (p * t).sum(1) / np.sqrt((p * p).sum(1) * (t * t).sum(1))
+    return {
+        "ssim": ssim_map.sum(axis=(1, 2, 3)), "ssim_pixels": ssim_map[0].size, "ms_ssim": ms,
+        "uqi": uqi.sum(axis=(1, 2, 3)), "uqi_pixels": uqi[0].size, "sse": (d * d).sum(axis=(1, 2, 3)),
+        "tv": np.abs(np.diff(p, axis=2)).sum(axis=(1, 2, 3)) + np.abs(np.diff(p, axis=3)).sum(axis=(1, 2, 3)),
+        "sam": np.arccos(np.clip(cos, -1, 1)).mean(axis=(1, 2)),
+        "ergas": 100 * 4.0 * np.sqrt(((d * d).mean(axis=(2, 3)) / t.mean(axis=(2, 3)) ** 2).mean(axis=1)),
+    }
+
+
+def _e4_stats(p, t):
+    """Per-image values of one E4 batch, two images a thread (scipy's filters release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        parts = list(pool.map(lambda i: _e4_chunk_stats(p[i:i + 2], t[i:i + 2]), range(0, len(p), 2)))
+    out = {k: np.concatenate([x[k] for x in parts]) for k in parts[0] if not k.endswith("_pixels")}
+    out.update({k: parts[0][k] * len(p) for k in ("ssim_pixels", "uqi_pixels")})
+    out["pixels"] = float(p[0].size * len(p))
+    return out
+
+
+def _ssim_inferred_range(p, t):
+    """Float64 SSIM over a batch with the range inferred as the port does: the larger of the two spans."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    data_range = max(float(p.max()) - float(p.min()), float(t.max()) - float(t.min()))
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        maps = list(pool.map(lambda i: _ssim_maps(p[i:i + 2].astype(np.float64), t[i:i + 2].astype(np.float64),
+                                                  data_range)[0], range(0, len(p), 2)))
+    return np.concatenate(maps).mean()
+
+
+def _e4_values(stats):
+    """E4's values in float64 from a list of per-batch stats (the epoch: all of them)."""
+    cat = {k: np.concatenate([s[k] for s in stats]) for k in stats[0] if not k.endswith("pixels")}
+    return {
+        "SSIM": cat["ssim"].sum() / sum(s["ssim_pixels"] for s in stats),
+        "MultiScaleSSIM": cat["ms_ssim"].mean(),
+        "PSNR": 10 * np.log10(1.0 / (cat["sse"].sum() / sum(s["pixels"] for s in stats))),
+        "UniversalImageQualityIndex": cat["uqi"].sum() / sum(s["uqi_pixels"] for s in stats),
+        "TotalVariation": cat["tv"].sum(),
+        "SpectralAngleMapper": cat["sam"].mean(),
+        "ErrorRelativeGlobalDimensionlessSynthesis": cat["ergas"].mean(),
+    }
+
+
+def _e_close(label, got, cpu, oracle, rtol, atol=0.0):
+    g = float(got)
+    if cpu is not None and not np.isclose(g, float(cpu), rtol=rtol, atol=atol):
+        raise AssertionError(f"{label}: card {g} vs CPU {float(cpu)} (rtol {rtol}, atol {atol})")
+    if not np.isclose(g, oracle, rtol=rtol, atol=atol):
+        raise AssertionError(f"{label}: card {g} vs float64 oracle {oracle} (rtol {rtol}, atol {atol})")
+    return abs(g - oracle) / abs(oracle)
+
+
+def _e4_tol(name):
+    """(rtol, atol) of an E4 value."""
+    return (0.0, ATOL_SSIM) if name in ("SSIM", "MultiScaleSSIM", "UniversalImageQualityIndex") else (RTOL_E4, 0.0)
+
+
+def _e_states_equal(label, gpu_col, cpu_col, rtol):
+    """Every count state of the card's collection equals the CPU run's exactly, every float state to ``rtol``."""
+    import torch
+
+    from metrics_tpu_torch.parallel.buffer import as_values
+
+    for k, m in gpu_col.items():
+        for state, value in m._current_state().items():
+            got, ref = as_values(value), as_values(getattr(cpu_col[k], state))
+            same = (torch.equal(got.cpu(), ref) if not got.is_floating_point()
+                    else torch.allclose(got.cpu(), ref, rtol=rtol, atol=0))
+            if not same:
+                raise AssertionError(f"{label} {k}.{state} differs between the card and the CPU run")
+
+
+def _e_report(name, run, groups, steps):
+    _check(run["updates"] == [groups * (i + 1) for i in range(steps)],
+           f"path {name}: {groups} updates a step, one per compute group of the CPU run")
+    _check(run["collectives"] == run["expected"],
+           f"path {name} epoch compute: {run['collectives']}, one sync a compute group")
+    ms = run["ms"]
+    print(f"[8] path {name}: {steps} steps: median {statistics.median(ms):.3f} ms/step (first step {ms[0]:.1f} ms);"
+          f" epoch compute {run['epoch_ms'][0]:.2f} ms (again: {run['epoch_ms'][1]:.2f} ms)")
+    prof = run.get("profile")
+    if prof is not None:
+        print(f"    path {name} step, profiled: {prof['device_ms']:.3f} ms device time a step"
+              f" ({100 * prof['device_ms'] / statistics.median(ms):.1f}% of the median step),"
+              f" {prof['ops']:g} device operations, {prof['host_syncs']} synchronizing CUDA calls"
+              f" ({', '.join(f'{site} x{n}' for site, n in prof['sync_sites'])})")
+        for op in prof["top"]:
+            print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
+    return {"ms_per_step": statistics.median(ms), "first_step_ms": ms[0], "epoch_ms": run["epoch_ms"],
+            "collectives": run["collectives"], "step_profile": prof}
+
+
+def check_path_e(result):
+    """E1-E4 against the port's CPU run and the float64 oracles; counts exactly."""
+    import warnings
+
+    import scipy.stats
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.parallel.buffer import as_values
+
+    timings = {}
+    warnings.simplefilter("ignore")  # the CPU runs warn as the card's did; the card's warnings were recorded
+    for name, build, stats, values_of in (("E1", _e1_collection, _e1_stats, _e1_values),
+                                          ("E2", _e2_collection, _e2_stats, _e2_values)):
+        run = result[name]
+        cpu = build("cpu", dist_sync_on_step=True)
+        total, worst = None, 0.0
+        for step, ((p, t), got) in enumerate(zip(run["host"], run["values"])):
+            want = cpu(torch.from_numpy(p), torch.from_numpy(t))
+            st = stats(p, t)
+            total = st if total is None else {k: total[k] + v for k, v in st.items()}
+            oracle = values_of(st)
+            for k, v in got.items():
+                worst = max(worst, _e_close(f"path {name} step {step} {k}", v, want[k], oracle[k], RTOL_E))
+        print(f"  ok: path {name} per-step values equal the CPU run and the float64 oracle (rtol {RTOL_E};"
+              f" max rel diff to the oracle {worst:.3g})")
+        oracle, want = values_of(total), cpu.compute()
+        for k, v in run["epoch"].items():
+            rel = _e_close(f"path {name} epoch {k}", v, want[k], oracle[k], RTOL_E)
+            print(f"  ok: path {name} epoch {k} = {float(v):.7g} (oracle {oracle[k]:.7g}, rel diff {rel:.3g})")
+        _e_states_equal(f"path {name}", run["collection"], cpu, RTOL_E)
+        print(f"  ok: path {name} count states equal the CPU run exactly, float sums to rtol {RTOL_E}")
+        if name == "E1":
+            col, n = run["collection"], int(total["n"])
+            _check(int(col["MeanSquaredError"].total) == n and int(col["PearsonCorrcoef"].n_total) == n
+                   and float(col["PearsonCorrcoef"].comoments[0]) == n and float(col["ExplainedVariance"].n_obs) == n,
+                   f"path E1 counts: int64 totals {n}, and the float32 counts the reference carries"
+                   f" (Pearson's n, ExplainedVariance's n_obs) exact at this multiple of the batch")
+            warned = any("saturates at 2^24" in w for w in run["warnings"])
+            _check(warned == (n >= 2**24), f"path E1 epoch compute {'warned' if warned else 'did not warn'} that"
+                                           f" Pearson's float32 count passed 2**24 ({n} samples)")
+        timings[name] = _e_report(name, run, len(cpu.compute_groups), len(run["host"]))
+
+    for label, run in result["E3"].items():
+        kind = label.split()[0]
+        fn = scipy.stats.spearmanr if kind == "Spearman" else scipy.stats.kendalltau
+        rtol = RTOL_E if kind == "Spearman" else RTOL_KENDALL
+        cpu = pt.MetricCollection([(pt.SpearmanCorrcoef if kind == "Spearman" else pt.KendallRankCorrCoef)(device="cpu")])
+        key = next(iter(run["epoch"]))
+        for step, ((p, t), got) in enumerate(zip(run["host"], run["values"])):
+            want = cpu(torch.from_numpy(p), torch.from_numpy(t))[key]
+            _e_close(f"path E3 {label} step {step}", got[key], want, fn(p, t).statistic, rtol)
+        all_p = np.concatenate([p for p, _ in run["host"]])
+        all_t = np.concatenate([t for _, t in run["host"]])
+        want, oracle = cpu.compute()[key], fn(all_p, all_t).statistic
+        rel = _e_close(f"path E3 {label} epoch", run["epoch"][key], want, oracle, rtol)
+        if kind == "Kendall":
+            _check(torch.equal(run["epoch"][key].cpu(), want), f"path E3 {label}: tau equals the CPU run bit for bit")
+        kept = [len(as_values(getattr(run["collection"][key], s))) for s in ("preds_all", "target_all")]
+        _check(kept == [len(all_p)] * 2, f"path E3 {label}: every row kept ({kept})")
+        print(f"  ok: path E3 {label} epoch over {len(all_p)} samples = {float(run['epoch'][key]):.7g}"
+              f" (scipy {oracle:.7g}, rel diff {rel:.3g}; CPU run equal to rtol {rtol})")
+        timings[f"E3 {label}"] = _e_report(f"E3 {label}", run, 1, len(run["host"]))
+    for kind in ("Spearman", "Kendall"):
+        a, b = (float(result["E3"][f"{kind} {m}"]["epoch"][next(iter(result["E3"][f"{kind} list"]["epoch"]))])
+                for m in ("list", "capacity"))
+        _check(np.isclose(a, b, rtol=1e-6, atol=0), f"path E3 {kind}: list mode {a:.7g} = capacity mode {b:.7g}")
+
+    run = result["E4"]
+    cpu = _e4_collection("cpu", dist_sync_on_step=True)
+    all_stats, worst = [], {}
+    for step, ((p, t), got) in enumerate(zip(run["host"], run["values"])):
+        want = _e4_call(cpu, (torch.from_numpy(p), torch.from_numpy(t))) if step < E4_CPU_STEPS else None
+        if step == E4_CPU_STEPS - 1:
+            for k, m in cpu.items():
+                for state, ref in _count_states(m).items():
+                    if not torch.equal(run["counts_at_cpu_steps"][k][state].cpu(), ref):
+                        raise AssertionError(f"path E4 {k}.{state} after {E4_CPU_STEPS} steps differs from the CPU run")
+        all_stats.append(_e4_stats(p, t))
+        oracle = _e4_values(all_stats[-1:])
+        for k, v in got.items():
+            rel = _e_close(f"path E4 step {step} {k}", v, None if want is None else want[k], oracle[k], *_e4_tol(k))
+            worst[k] = max(worst.get(k, 0.0), abs(float(v) - oracle[k]))
+    print(f"  ok: path E4 per-step values equal the CPU run (steps 0-{E4_CPU_STEPS - 1}) and, every step, the float64"
+          f" oracle (SSIM, MS-SSIM, UQI atol {ATOL_SSIM}, the rest rtol {RTOL_E4}); max abs diff to the oracle"
+          f" {', '.join(f'{k} {v:.3g}' for k, v in worst.items())}")
+    print(f"  ok: path E4 count states after {E4_CPU_STEPS} steps equal the CPU run's exactly")
+    oracle = _e4_values(all_stats)
+    for k, v in run["epoch"].items():
+        rel = _e_close(f"path E4 epoch {k}", v, None, oracle[k], *_e4_tol(k))
+        print(f"  ok: path E4 epoch {k} = {float(v):.7g} (oracle {oracle[k]:.7g}, rel diff {rel:.3g})")
+    col = run["collection"]
+    images = len(run["host"]) * E4_SHAPE[0]
+    _check(int(col["TotalVariation"].num_images) == images == int(col["MultiScaleSSIM"].count)
+           and int(col["PSNR"].total) == images * int(np.prod(E4_SHAPE[1:])),
+           f"path E4 epoch counts: {images} images, {int(col['PSNR'].total)} pixels (int64)")
+    _check(result["flags_kept"], "path E4 ran with TF32 allowed (cuDNN and matmul, precision 'high'), and its calls"
+                                  " left those flags as they were")
+    timings["E4"] = _e_report("E4", run, len(cpu.compute_groups), len(run["host"]))
+    timings["E4"]["peak_bytes"] = run["peak_bytes"]
+    if run["peak_bytes"] is not None:
+        print(f"    path E4 peak device memory {run['peak_bytes'] / 2**20:.0f} MiB")
+
+    run = result["E4 stored"]
+    cpu = pt.MetricCollection([pt.SSIM(device="cpu")])
+    for step, ((p, t), got) in enumerate(zip(run["host"], run["values"])):
+        want = cpu(torch.from_numpy(p), torch.from_numpy(t))["SSIM"]
+        _e_close(f"path E4 stored step {step}", got["SSIM"], want, _ssim_inferred_range(p, t), *_e4_tol("SSIM"))
+    all_p = np.concatenate([p for p, _ in run["host"]])
+    all_t = np.concatenate([t for _, t in run["host"]])
+    oracle = _ssim_inferred_range(all_p, all_t)
+    rel = _e_close("path E4 stored epoch", run["epoch"]["SSIM"], cpu.compute()["SSIM"], oracle, *_e4_tol("SSIM"))
+    m = run["collection"]["SSIM"]
+    _check(len(m.y) == len(run["host"]) and tuple(m.y[0].shape) == E4_SHAPE,
+           f"path E4 stored SSIM: {len(m.y)} 4-D states of {E4_SHAPE} gathered at compute() (rel diff to the oracle"
+           f" {rel:.3g})")
+    timings["E4 stored"] = _e_report("E4 stored", run, 1, len(run["host"]))
     return timings
 
 
@@ -1011,6 +1599,7 @@ def main() -> int:
         "path_b_ms_per_step": paths["b_ms"],
         "path_d1_ms_per_step": paths["d"]["D1"]["ms_per_step"],
         "path_d2_ms_per_step": paths["d"]["D2"]["ms_per_step"],
+        **{f"path_{k.lower()}_ms_per_step": paths["e"][k]["ms_per_step"] for k in ("E1", "E2", "E4")},
     }
 
     print(json.dumps({"kernels": [kernel]}))

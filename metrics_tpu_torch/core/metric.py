@@ -5,7 +5,8 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
 * ``add_state`` with the sum / mean / min / max / cat / callable reductions;
 * the one-delta ``forward``: the batch is run through ``update`` on a fresh
   state (the delta), the delta is merged into the accumulator with the same
-  per-state reduction that syncs ranks, and the batch value is computed from
+  per-state reduction that syncs ranks (``sum`` / ``min`` / ``max``, a list,
+  or a callable marked ``associative``), and the batch value is computed from
   the delta. With ``dist_sync_on_step`` the delta is synced first. States
   whose reduction has no pairwise merge take the reference double-update path;
 * the wrapped ``compute``: cached value, sync at compute (whenever a
@@ -328,6 +329,8 @@ class Metric(nn.Module, ABC):
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if not self._in_forward:  # the epoch compute, not a step's batch value
+                self._host_warnings()
             if self._computed is not None:
                 return self._computed
             synced = self._to_sync and (self.dist_sync_fn is not None or dist_active())
@@ -342,6 +345,10 @@ class Metric(nn.Module, ABC):
             return self._computed
 
         return wrapped_func
+
+    def _host_warnings(self) -> None:
+        """Warnings from host-side bookkeeping (``_count_bound``) at every epoch
+        ``compute()``, before the cache is read: no device work. Default: none."""
 
     @abstractmethod
     def update(self) -> None:  # pylint: disable=E0202

@@ -5,6 +5,7 @@ the base of the metrics that reduce to "sum of per-sample statistics divided
 by a count": a float32 ``total`` and an int64 ``count``, both "sum" states.
 The windowed-serving math of that module is not ported yet.
 """
+import inspect
 from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
@@ -38,6 +39,12 @@ class SumCountMetric(Metric):
         )
         self.add_state("total", default=torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
         self.add_state("count", default=torch.zeros((), dtype=torch.int64), dist_reduce_fx="sum")
+
+    def _wrap_methods(self) -> None:
+        super()._wrap_methods()
+        # ``update`` forwards everything to ``_update_stats``: filter a collection's keyword
+        # arguments by what that takes, so a member that reads ``img=`` can share the call
+        self._update_signature = inspect.signature(self._update_stats)
 
     def _update_stats(self, *args: Any, **kwargs: Any) -> Tuple[Tensor, Any]:
         raise NotImplementedError  # pragma: no cover - subclasses define it

@@ -1,0 +1,32 @@
+"""MAE. Counterpart of ``metrics_tpu/functional/regression/mean_absolute_error.py``."""
+from typing import Tuple, Union
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.data import upcast_accum
+
+
+def _mean_absolute_error_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, int]:
+    _check_same_shape(preds, target)
+    preds, target = upcast_accum(preds), upcast_accum(target)
+    return torch.sum(torch.abs(preds - target)), target.numel()
+
+
+def _mean_absolute_error_compute(sum_abs_error: Tensor, n_obs: Union[int, Tensor]) -> Tensor:
+    return sum_abs_error / n_obs
+
+
+def mean_absolute_error(preds: Tensor, target: Tensor) -> Tensor:
+    """Mean absolute error.
+
+    Example:
+        >>> import torch
+        >>> x = torch.tensor([0., 1, 2, 3])
+        >>> y = torch.tensor([0., 1, 2, 2])
+        >>> float(mean_absolute_error(x, y))
+        0.25
+    """
+    sum_abs_error, n_obs = _mean_absolute_error_update(preds, target)
+    return _mean_absolute_error_compute(sum_abs_error, n_obs)

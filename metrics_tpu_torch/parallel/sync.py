@@ -40,6 +40,23 @@ _STR_REDUCTIONS = ("sum", "mean", "cat", "min", "max")
 _REDUCE_OPS = {"sum": "sum", "mean": "sum", "min": "min", "max": "max"}
 
 
+def associative(fn: Callable) -> Callable:
+    """Mark a callable ``dist_reduce_fx`` as an associative fold over axis 0.
+
+    A plain callable is applied once to the ``(world, ...)`` stack after a
+    gather, and nothing more is assumed of it. One marked associative promises
+    that ``fn(torch.stack([a, b]))`` is a valid pairwise merge, so the one-delta
+    ``forward`` folds a batch delta into the accumulator with it, as it does
+    with ``sum`` / ``min`` / ``max``.
+    """
+    fn._mtpu_associative = True
+    return fn
+
+
+def is_associative(fx: ReduceFx) -> bool:
+    return callable(fx) and getattr(fx, "_mtpu_associative", False)
+
+
 def canonicalize_reduce_fx(fx: ReduceFx) -> ReduceFx:
     """Validate and canonicalize a ``dist_reduce_fx`` argument."""
     if fx is None or callable(fx):
@@ -83,6 +100,8 @@ def merge_values(fx: ReduceFx, acc: Any, delta: Any) -> Any:
         return torch.minimum(acc, delta)
     if fx == "max":
         return torch.maximum(acc, delta)
+    if is_associative(fx):
+        return fx(torch.stack([acc, delta]))
     raise ValueError(f"Reduction {fx!r} has no pairwise merge; metric must use the double-update forward.")
 
 
@@ -90,7 +109,7 @@ def is_mergeable(fx: ReduceFx, default: Any) -> bool:
     """Whether a state with this reduction supports pairwise merge (one-delta forward)."""
     if isinstance(default, (list, PaddedBuffer)) or fx == "cat":
         return True
-    return fx in ("sum", "min", "max")
+    return fx in ("sum", "min", "max") or is_associative(fx)
 
 
 def dist_active() -> bool:

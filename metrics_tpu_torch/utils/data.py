@@ -45,6 +45,14 @@ def scatter_rows_drop(out: Tensor, dest: Tensor, rows: Tensor) -> Tensor:
     return ext[:n]
 
 
+def upcast_accum(x: Tensor) -> Tensor:
+    """Upcast bfloat16 / float16 to float32 before accumulation, so epoch-scale
+    sums of errors and moments do not lose precision."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x.to(torch.float32)
+    return x
+
+
 def dim_zero_sum(x: Tensor) -> Tensor:
     return torch.sum(x, dim=0)
 
