@@ -94,7 +94,22 @@ Phases, in order; each raises on failure and none is caught:
    one update per compute group, and the epoch ``compute()`` one sync per group. Prints ms per step,
    epoch ``compute()`` ms and a profiled E1 and E4 step. Path E runs no hand-written kernel: the JAX
    package computes regression in XLA, never Pallas, so the ``kernels`` line lists K1 alone.
-9. The ``kernels`` JSON line, then the device JSON as the last line.
+9. Path F, retrieval, in the same group with ``device="cuda"`` (nothing caught), at MS MARCO passage
+   ranking's size (its dev re-ranking task: 6,980 queries x a first-stage retriever's top 1,000, rounded
+   to 7,168 x 1,000): ``MetricCollection([RetrievalMAP, RetrievalMRR("neg"), RetrievalPrecision(k=10),
+   RetrievalRecall(k=100), RetrievalHitRate(k=10), RetrievalFallOut(k=10), RetrievalRPrecision,
+   RetrievalNormalizedDCG(k=10)])``, one compute group, over 28 steps of 256,000 rows (sparse int32 query
+   ids, ~15% of the queries with no relevant candidate, grades 1-3, tied scores on a 2**-12 grid, 16 NaN
+   scores, 0.5% exclude sentinels; the query-ordered epoch rotated by 500 rows, so a query straddles every
+   step boundary), once with list states and once with ``capacity=8,388,608``, gathered at ``compute()``.
+   Per-step values of both modes equal the CPU run (steps 0-1) and a float64 numpy oracle (every step),
+   the epoch values both, and the per-query integer quantities (relevant rows, hits in the top 10 and 100,
+   first-hit ranks) equal the CPU run and the oracle exactly. One update a step, one gather for the group
+   at the epoch (a layout, an int32 and a float32 ``all_gather``), and the profiled list-mode epoch
+   compute makes no synchronizing call but the gather's two. Prints ms per step, epoch ``compute()`` ms,
+   each mode's profiled epoch (device ms, the sort kernels' share, operations, synchronizing calls) and
+   peak device memory. Path F runs no hand-written kernel: the JAX package computes retrieval in XLA.
+10. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -146,6 +161,19 @@ RTOL_E4 = 1e-5  # PSNR, TV, SAM, ERGAS: float32 sums over 12.6M terms a step in 
 # ~0.3 carry absolute errors of ~1e-7, against a denominator var_p + var_t + C2 that may be as small as
 # C2 = 9e-4 on the smooth target, so a value in [0, 1] is held to 1e-4 absolute
 ATOL_SSIM = 1e-4
+# Path F: MS MARCO passage ranking's dev re-ranking task (6,980 queries x the top-1,000 candidates of a
+# first-stage retriever), rounded to 7,168 queries; the epoch in 28 steps of 256,000 rows
+F_QUERIES, F_CANDIDATES = 7_168, 1_000
+F_STEPS, F_BATCH = 28, 256_000
+F_ROTATE = 500  # rows the query-ordered epoch is rotated by, so that a query straddles every step boundary
+F_CAPACITY = 8_388_608
+F_NAN = 16
+F_CPU_STEPS = 2  # steps the CPU run repeats per step; it holds the epoch too
+# Path F, card against CPU: the same int64 counts, float32 divisions of them, per-query float64 scans
+# rounded to float32 and a float32 mean over 7,168 queries in another order
+RTOL_F = 1e-6
+# against the float64 numpy oracle: the float32 roundings of the above, a few ulps
+RTOL_F_ORACLE = 1e-5
 
 
 def _check(ok, what):
@@ -444,6 +472,7 @@ def phase_paths():
         path_c = run_path_c(dev)
         path_d = run_path_d(dev)
         path_e = run_path_e(dev)
+        path_f = run_path_f(dev)
     finally:
         dist.destroy_process_group()
 
@@ -465,8 +494,10 @@ def phase_paths():
     check_path_c(path_c)
     d_timings = check_path_d(path_d)
     e_timings = check_path_e(path_e)
+    f_timings = check_path_f(path_f)
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
-            "c": path_c["timings"], "d": d_timings, "e": e_timings}
+            "c": path_c["timings"], "d": d_timings, "e": e_timings,
+            "f": f_timings}
 
 
 def _profile_step(collection, batch):
@@ -973,7 +1004,7 @@ def _profile_call(step, calls=5):
         sites[site] = sites.get(site, 0) + 1
     return {"device_ms": sum(r["us_per_call"] for r in rows) / 1e3, "ops": sum(r["per_call"] for r in rows),
             "host_syncs": len(syncs), "sync_sites": sorted(sites.items(), key=lambda kv: -kv[1])[:8],
-            "top": rows[:8]}
+            "sort_ms": sum(r["us_per_call"] for r in rows if "sort" in r["name"].lower()) / 1e3, "top": rows[:8]}
 
 
 def _d_close(label, got, cpu, oracle):
@@ -1559,6 +1590,247 @@ def check_path_e(result):
     return timings
 
 
+# ------------------------------------------------------------------------------------------- path F
+def _f_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection([
+        pt.RetrievalMAP(device=device, **kw),
+        # MS MARCO's official MRR counts a query with no relevant candidate as 0
+        pt.RetrievalMRR(query_without_relevant_docs="neg", device=device, **kw),
+        pt.RetrievalPrecision(k=10, device=device, **kw),
+        pt.RetrievalRecall(k=100, device=device, **kw),
+        pt.RetrievalHitRate(k=10, device=device, **kw),
+        pt.RetrievalFallOut(k=10, device=device, **kw),
+        pt.RetrievalRPrecision(device=device, **kw),
+        pt.RetrievalNormalizedDCG(k=10, device=device, **kw),
+    ])
+
+
+def _f_batches():
+    """The epoch: 7,168 queries with sparse int32 ids, 1,000 candidates each. About 15% of the queries hold
+    no relevant candidate (a first-stage miss), the others 1-3 graded 1-3 (TREC Deep Learning's grades);
+    scores sigmoid(N(0, 1) + 1.5 grade) on a 2**-12 grid (ties in every query), 16 of them NaN, 0.5% of
+    the rows the exclude sentinel -100. In query order, rotated by 500 rows and cut into 28 steps of
+    256,000 rows, each step's rows shuffled."""
+    rng = np.random.default_rng(14)
+    q, c = F_QUERIES, F_CANDIDATES
+    qids = rng.permutation(np.unique(rng.integers(0, 2**31 - 1, 2 * q)))[:q].astype(np.int32)
+    positions = np.argpartition(rng.random((q, c)), 3, axis=1)[:, :3]
+    relevant = (np.arange(3)[None, :] < rng.integers(1, 4, (q, 1))) & (rng.random((q, 1)) >= 0.15)
+    grades = np.zeros((q, c), np.int32)
+    np.put_along_axis(grades, positions, np.where(relevant, rng.integers(1, 4, (q, 3)), 0).astype(np.int32), axis=1)
+    logits = rng.standard_normal((q, c), dtype=np.float32) + 1.5 * grades
+    scores = (np.round(4096 / (1 + np.exp(-logits))) / 4096).astype(np.float32).reshape(-1)
+    scores[rng.choice(q * c, F_NAN, replace=False)] = np.nan
+    target = grades.reshape(-1)
+    target[rng.random(q * c) < 0.005] = -100
+    idx = np.repeat(qids, c)
+    epoch = [np.roll(x, F_ROTATE) for x in (idx, scores, target)]
+    batches = []
+    for step in range(F_STEPS):
+        perm = rng.permutation(F_BATCH) + step * F_BATCH
+        batches.append(tuple(x[perm] for x in epoch))
+    return batches
+
+
+def _f_integers(idx, preds, target):
+    """The per-query integer quantities of an epoch, in query-id order: relevant rows, hits in the top 10
+    and top 100, the rank of the first relevant row (0: none) and the valid rows, computed by the port's
+    segment functions on the tensors' device with the modules' neutralized sentinel rows."""
+    import torch
+
+    from metrics_tpu_torch.functional.retrieval.segments import first_relevant_rank, grouped_topk_hits
+
+    dense = torch.unique(idx, return_inverse=True)[1]
+    n = int(dense.max()) + 1
+    excluded = target == -100
+    preds, target = torch.where(excluded, float("-inf"), preds), torch.where(excluded, 0, target)
+    hits10, rel, valid = grouped_topk_hits(dense, preds, target, n, 10, ~excluded)
+    hits100, _, _ = grouped_topk_hits(dense, preds, target, n, 100, ~excluded)
+    return {"relevant": rel, "hits@10": hits10, "hits@100": hits100,
+            "first_hit_rank": first_relevant_rank(dense, preds, target, n), "valid": valid}
+
+
+def run_path_f(device):
+    """Path F inside the caller's process group: the eight retrieval metrics in one compute group, list and
+    capacity states, synced at ``compute()``; timed, updates and epoch collectives counted, both epochs
+    profiled, peak device memory read."""
+    import torch
+
+    host = _f_batches()
+    batches = _to(device, host)
+    _sync(device)
+    base = torch.cuda.memory_allocated() if device.type == "cuda" else None
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for mode, kw in (("list", {}), ("capacity", {"capacity": F_CAPACITY})):
+        col = _f_collection(device, **kw)
+        values, ms, updates = _forward_counted(col, batches)
+        epoch, epoch_ms, collectives, _ = _epoch_timed(col, device)
+        runs[mode] = {"collection": col, "values": values, "ms": ms, "updates": updates, "epoch": epoch,
+                      "epoch_ms": epoch_ms, "collectives": collectives, "expected": _syncs_per_epoch(col)}
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    for run in runs.values():
+        col = run["collection"]
+
+        def fresh_compute(col=col):
+            for m in col.values():
+                m._computed = None
+            col.compute()
+
+        run["profile"] = _profile_call(fresh_compute, calls=3) if device.type == "cuda" else None
+    epoch_rows = [torch.cat([b[i] for b in batches]) for i in range(3)]
+    integers = {k: v.cpu() for k, v in _f_integers(*epoch_rows).items()}
+    return {"host": host, "runs": runs, "integers": integers, "base_bytes": base, "peak_bytes": peak}
+
+
+def _f_oracle(idx, preds, target):
+    """The eight values and the per-query integer quantities in float64 numpy, from the metrics'
+    definitions: rows ranked by (query, score descending, row), NaN scores last; a sentinel row (-100)
+    keeps its place in its query with score -inf and no gain, so it ranks after every real score and
+    before the NaN scores (the reference's masking), and counts neither as relevant nor as a document.
+    A query is empty when its raw target sum is 0 (the reference's rule: a sentinel makes a query
+    non-empty); for fall-out when it has no valid non-relevant row. 'skip' averages over the other
+    queries, 'neg' scores an empty query 0."""
+    n = len(idx)
+    excluded = target == -100
+    score = np.where(excluded, -np.inf, preds.astype(np.float64))
+    nan = np.isnan(score)
+    order = np.lexsort((np.arange(n), np.where(nan, 0.0, -score), nan, idx))
+    q, raw, ex = idx[order], target[order], excluded[order]
+    gain = np.where(ex, 0, raw).astype(np.float64)
+    starts = np.flatnonzero(np.r_[True, q[1:] != q[:-1]])
+    counts = np.diff(np.r_[starts, n])
+    nq = len(starts)
+    seg = np.repeat(np.arange(nq), counts)
+    rank = np.arange(n) - starts[seg] + 1
+    rel = gain > 0
+    per = lambda w: np.bincount(seg, weights=w, minlength=nq)  # noqa: E731
+    count = lambda w: np.rint(per(w.astype(np.float64))).astype(np.int64)  # noqa: E731
+    n_rel = count(rel)
+    scan = np.cumsum(rel)
+    so_far = scan - np.r_[0, scan][starts][seg]
+    ap = per(np.where(rel, so_far / rank, 0.0)) / np.maximum(n_rel, 1)
+    first = np.full(nq, n + 1)
+    np.minimum.at(first, seg[rel], rank[rel])
+    first = np.where(first > n, 0, first)
+    hits10, hits100 = count(rel & (rank <= 10)), count(rel & (rank <= 100))
+    neg = (gain <= 0) & ~ex
+    neg_total, false10 = count(neg), count(neg & (rank <= 10))
+    r_hits = count(rel & (rank <= n_rel[seg]))
+    discount = np.where(rank <= 10, 1.0 / np.log2(rank + 1.0), 0.0)
+    ideal = np.lexsort((-gain, seg))  # each query's gains in descending order, in the query's own positions
+    ndcg_num, ndcg_den = per(gain * discount), per(gain[ideal] * discount)
+    safe = lambda a, b: np.where(b > 0, a / np.maximum(b, 1e-300), 0.0)  # noqa: E731
+    per_query = {
+        "RetrievalMAP": ap, "RetrievalMRR": np.where(first > 0, 1.0 / np.maximum(first, 1), 0.0),
+        "RetrievalPrecision": hits10 / 10.0, "RetrievalRecall": safe(hits100, n_rel),
+        "RetrievalHitRate": (hits10 > 0).astype(np.float64), "RetrievalFallOut": safe(false10, neg_total),
+        "RetrievalRPrecision": safe(r_hits, n_rel), "RetrievalNormalizedDCG": safe(ndcg_num, ndcg_den),
+    }
+    empty = per(raw.astype(np.float64)) == 0
+    values = {}
+    for name, v in per_query.items():
+        e = (neg_total == 0) if name == "RetrievalFallOut" else empty
+        if name == "RetrievalMRR":  # query_without_relevant_docs="neg"
+            values[name] = float(np.mean(np.where(e, 0.0, v)))
+        else:
+            values[name] = float(np.mean(v[~e])) if (~e).any() else 0.0
+    integers = {"relevant": n_rel, "hits@10": hits10, "hits@100": hits100, "first_hit_rank": first,
+                "valid": count(~ex)}
+    return values, integers, int(empty.sum())
+
+
+def check_path_f(result):
+    """Both modes against the port's CPU run and the float64 oracle, per step and at the epoch; the
+    per-query integer quantities exactly; one update a step, one gather at the epoch, no synchronizing
+    call in the list-mode epoch compute beyond the gather's two."""
+    import warnings
+
+    import torch
+
+    from metrics_tpu_torch.parallel.buffer import as_values
+
+    host, runs = result["host"], result["runs"]
+    warnings.simplefilter("ignore")
+    cpu = _f_collection("cpu")
+    worst = {"cpu": 0.0, "oracle": 0.0}
+    for step, (i, p, t) in enumerate(host):
+        args = tuple(torch.from_numpy(x) for x in (i, p, t))
+        want = cpu(*args) if step < F_CPU_STEPS else (cpu.update(*args), None)[1]
+        oracle, _, _ = _f_oracle(i, p, t)
+        for mode, run in runs.items():
+            for k, v in run["values"][step].items():
+                g = float(v)
+                if want is not None:
+                    if not np.isclose(g, float(want[k]), rtol=RTOL_F, atol=0):
+                        raise AssertionError(f"path F {mode} step {step} {k}: card {g} vs CPU {float(want[k])}")
+                    worst["cpu"] = max(worst["cpu"], abs(g - float(want[k])) / max(abs(float(want[k])), 1e-30))
+                if not np.isclose(g, oracle[k], rtol=RTOL_F_ORACLE, atol=0):
+                    raise AssertionError(f"path F {mode} step {step} {k}: card {g} vs float64 oracle {oracle[k]}")
+                worst["oracle"] = max(worst["oracle"], abs(g - oracle[k]) / max(abs(oracle[k]), 1e-30))
+    print(f"  ok: path F per-step values of both modes equal the CPU run (steps 0-{F_CPU_STEPS - 1}, rtol {RTOL_F};"
+          f" max rel diff {worst['cpu']:.3g}) and, every step, the float64 oracle (rtol {RTOL_F_ORACLE};"
+          f" max rel diff {worst['oracle']:.3g})")
+
+    epoch_rows = [np.concatenate([b[j] for b in host]) for j in range(3)]
+    oracle, oracle_ints, n_empty = _f_oracle(*epoch_rows)
+    want = {k: float(v) for k, v in cpu.compute().items()}
+    for k in want:
+        got = {mode: float(run["epoch"][k]) for mode, run in runs.items()}
+        _check(all(np.isclose(g, want[k], rtol=RTOL_F, atol=0) and np.isclose(g, oracle[k], rtol=RTOL_F_ORACLE, atol=0)
+                   for g in got.values()),
+               f"path F epoch {k}: list {got['list']:.7f}, capacity {got['capacity']:.7f}, CPU {want[k]:.7f},"
+               f" oracle {oracle[k]:.7f}")
+    cpu_ints = {k: v for k, v in _f_integers(*(torch.from_numpy(x) for x in epoch_rows)).items()}
+    for k, v in result["integers"].items():
+        if not (torch.equal(v, cpu_ints[k]) and np.array_equal(v.numpy(), oracle_ints[k])):
+            raise AssertionError(f"path F per-query {k} differ between the card, the CPU run and the oracle")
+    ints = result["integers"]
+    print(f"  ok: path F per-query integers over {len(ints['relevant'])} queries equal the CPU run and the oracle"
+          f" exactly: relevant rows ({int(ints['relevant'].sum())}), hits in the top 10 / 100, first-hit ranks,"
+          f" valid rows ({int(ints['valid'].sum())}); {n_empty} queries empty by the raw-target rule,"
+          f" {int((ints['relevant'] == 0).sum())} with no relevant row")
+    rows = sum(len(b[0]) for b in host)
+    timings = {}
+    for mode, run in runs.items():
+        col = run["collection"]
+        kept = [len(as_values(getattr(col["RetrievalMAP"], s))) for s in ("idx", "preds", "target")]
+        _check(kept == [rows] * 3, f"path F {mode}: every row kept in each state ({kept[0]})")
+        _check(run["updates"] == [i + 1 for i in range(len(host))] and len(col.compute_groups) == 1,
+               f"path F {mode}: the eight members form one compute group, one update a step")
+        _check(run["collectives"] == run["expected"] == {"all_reduce": 0, "all_gather": 3},
+               f"path F {mode} epoch compute: {run['collectives']}: one gather for the group (layout, int32, float32)")
+        ms, prof = run["ms"], run["profile"]
+        print(f"[9] path F {mode}: {len(host)} steps of {F_BATCH} rows: median {statistics.median(ms):.3f} ms/step"
+              f" (first step {ms[0]:.1f} ms); epoch compute of {rows} rows {run['epoch_ms'][0]:.2f} ms"
+              f" (again: {run['epoch_ms'][1]:.2f} ms)")
+        timing = {"ms_per_step": statistics.median(ms), "first_step_ms": ms[0], "epoch_ms": run["epoch_ms"],
+                  "collectives": run["collectives"], "epoch_profile": prof}
+        if prof is not None:
+            timing["sort_share"] = prof["sort_ms"] / prof["device_ms"]
+            print(f"    path F {mode} epoch compute, profiled: {prof['device_ms']:.3f} ms device time"
+                  f" ({100 * prof['device_ms'] / run['epoch_ms'][1]:.1f}% of the second epoch compute),"
+                  f" sort kernels {prof['sort_ms']:.3f} ms ({100 * timing['sort_share']:.1f}%), {prof['ops']:g} device"
+                  f" operations, {prof['host_syncs']} synchronizing CUDA calls"
+                  f" ({', '.join(f'{site} x{n}' for site, n in prof['sync_sites'])})")
+            for op in prof["top"]:
+                print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
+            if mode == "list":
+                _check(prof["host_syncs"] == 2 and all(site.startswith("metrics_tpu_torch/parallel/sync.py")
+                                                        for site, _ in prof["sync_sites"]),
+                       "path F list-mode epoch compute: no synchronizing call but the gather's two (its layout table)")
+        timings[mode] = timing
+    if result["peak_bytes"] is not None:
+        print(f"    path F peak device memory {result['peak_bytes'] / 2**20:.0f} MiB"
+              f" ({(result['peak_bytes'] - result['base_bytes']) / 2**20:.0f} MiB above the"
+              f" {result['base_bytes'] / 2**20:.0f} MiB held before path F)")
+    return {"ms_per_step": timings["list"]["ms_per_step"], "modes": timings, "peak_bytes": result["peak_bytes"],
+            "base_bytes": result["base_bytes"]}
+
+
 def main() -> int:
     import torch
 
@@ -1600,6 +1872,7 @@ def main() -> int:
         "path_d1_ms_per_step": paths["d"]["D1"]["ms_per_step"],
         "path_d2_ms_per_step": paths["d"]["D2"]["ms_per_step"],
         **{f"path_{k.lower()}_ms_per_step": paths["e"][k]["ms_per_step"] for k in ("E1", "E2", "E4")},
+        "path_f_ms_per_step": paths["f"]["ms_per_step"],
     }
 
     print(json.dumps({"kernels": [kernel]}))

@@ -6,7 +6,7 @@ from metrics_tpu_torch.classification.binned import (  # noqa: F401
     BinnedPrecisionRecallCurve,
     BinnedROC,
 )
-from metrics_tpu_torch.classification.f_beta import F1, FBeta  # noqa: F401
+from metrics_tpu_torch.classification.f_beta import Dice, F1, FBeta  # noqa: F401
 from metrics_tpu_torch.classification.precision_recall import Precision, Recall  # noqa: F401
 from metrics_tpu_torch.classification.auc import AUC  # noqa: F401
 from metrics_tpu_torch.classification.auroc import AUROC  # noqa: F401

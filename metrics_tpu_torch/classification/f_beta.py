@@ -1,4 +1,4 @@
-"""FBeta / F1 modules (subclasses of StatScores).
+"""FBeta / F1 / Dice modules (subclasses of StatScores).
 
 Counterpart of ``metrics_tpu/classification/f_beta.py``.
 """
@@ -102,3 +102,19 @@ class F1(FBeta):
             dist_sync_fn=dist_sync_fn,
             device=device,
         )
+
+
+class Dice(F1):
+    r"""Dice coefficient, accumulated over batches.
+
+    ``Dice = 2 TP / (2 TP + FP + FN)``: the same value as F1, under the name
+    segmentation work uses. ``dice_score`` is the per-call functional.
+
+    Example:
+        >>> import torch
+        >>> target = torch.tensor([0, 1, 2, 0, 1, 2])
+        >>> preds = torch.tensor([0, 2, 1, 0, 0, 1])
+        >>> dice = Dice(num_classes=3, device="cpu")
+        >>> round(float(dice(preds, target)), 4)
+        0.3333
+    """

@@ -20,7 +20,9 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
   layout (host numpy values, a buffer as ``{"data", "count"}``, plus
   ``_count_bound`` and ``_epoch_watermark``), so a checkpoint of either
   package loads into the other;
-* the compute-group fingerprint ``_group_fingerprint``;
+* the compute-group fingerprint ``_group_fingerprint``, in both forms: the
+  update attributes a class lists, or every config attribute but the
+  compute-only ones it lists;
 * metric arithmetic: every operator overload builds a
   :class:`CompositionalMetric`.
 
@@ -54,6 +56,15 @@ State = Dict[str, Any]
 
 # attributes holding the bound update/compute wrappers: rebuilt, never copied
 _WRAPPER_ATTRS = ("update", "compute", "_update_impl", "_compute_impl")
+
+# instance attributes that are no update config: ``nn.Module``'s own, the
+# wrappers, caches, counters and sync settings, and the state registries
+# (the group key's schema covers those)
+_NON_CONFIG_ATTRS = frozenset(vars(nn.Module())) | frozenset(_WRAPPER_ATTRS) | frozenset({
+    "_update_signature", "_computed", "_forward_cache", "_count_bound", "_epoch_watermark",
+    "_to_sync", "_in_forward", "compute_on_step", "dist_sync_on_step", "process_group", "dist_sync_fn",
+    "_defaults", "_persistent", "_reductions", "_cat_layouts", "device",
+})
 
 
 class _BufferSpec(NamedTuple):
@@ -108,6 +119,13 @@ class Metric(nn.Module, ABC):
     # Attr names that feed ``update``; a subclass declares them to opt its
     # instances into MetricCollection compute groups. None means never grouped.
     _GROUP_UPDATE_ATTRS: Optional[tuple] = None
+
+    # The exclusion form of the same opt-in: the attrs that are compute-only.
+    # Every other config attribute of the instance is then in the group key,
+    # so a subclass that adds update config splits off on its own. The
+    # retrieval family declares it on its shared base. ``_GROUP_UPDATE_ATTRS``
+    # wins when both are set.
+    _GROUP_COMPUTE_ONLY_ATTRS: Optional[tuple] = None
 
     def __init__(
         self,
@@ -443,11 +461,19 @@ class Metric(nn.Module, ABC):
         shared update delta serves them all.
         """
         attrs = type(self)._GROUP_UPDATE_ATTRS
-        if attrs is None:
+        excluded = type(self)._GROUP_COMPUTE_ONLY_ATTRS
+        if attrs is None and excluded is None:
             return None
         update_fn = next((vars(k)["update"] for k in type(self).__mro__ if "update" in vars(k)), None)
         try:
-            config = tuple((a, _fingerprint_value(getattr(self, a, None))) for a in (*attrs, "capacity"))
+            if attrs is not None:
+                config = tuple((a, _fingerprint_value(getattr(self, a, None))) for a in (*attrs, "capacity"))
+            else:
+                config = tuple(
+                    (k, _fingerprint_value(v))
+                    for k, v in sorted(vars(self).items())
+                    if k not in _NON_CONFIG_ATTRS and k not in self._defaults and k not in excluded
+                )
             schema = tuple(
                 (n, _fingerprint_value(self._defaults[n]), _fingerprint_value(self._reductions[n]))
                 for n in sorted(self._defaults)

@@ -34,6 +34,9 @@ def _average_precision_compute(
     pos_label: int,
     sample_weights: Optional[Sequence] = None,
 ) -> Union[List[Tensor], Tensor]:
+    if preds.shape[0] == 0:
+        # the JAX package raises here too: an AP over no samples is undefined, not 0.0
+        raise IndexError("index is out of bounds for axis 0 with size 0")
     weights = None if sample_weights is None else torch.as_tensor(sample_weights, dtype=torch.float32, device=preds.device)
 
     if num_classes == 1:

@@ -1,0 +1,26 @@
+"""RetrievalMRR. Counterpart of ``metrics_tpu/retrieval/reciprocal_rank.py``."""
+from typing import Optional
+
+from torch import Tensor
+
+from metrics_tpu_torch.functional.retrieval.segments import grouped_reciprocal_rank
+from metrics_tpu_torch.retrieval.retrieval_metric import RetrievalMetric
+
+
+class RetrievalMRR(RetrievalMetric):
+    r"""Mean reciprocal rank over queries.
+
+    Example:
+        >>> import torch
+        >>> indexes = torch.tensor([0, 0, 0, 1, 1, 1, 1])
+        >>> preds = torch.tensor([0.2, 0.3, 0.5, 0.1, 0.3, 0.5, 0.2])
+        >>> target = torch.tensor([False, False, True, False, True, False, False])
+        >>> mrr = RetrievalMRR(device="cpu")
+        >>> float(mrr(indexes, preds, target))
+        0.75
+    """
+
+    def _grouped_metric(
+        self, dense_idx: Tensor, preds: Tensor, target: Tensor, num_queries: int, valid: Optional[Tensor] = None
+    ) -> Tensor:
+        return grouped_reciprocal_rank(dense_idx, preds, target, num_queries)

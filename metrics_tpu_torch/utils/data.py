@@ -53,6 +53,12 @@ def upcast_accum(x: Tensor) -> Tensor:
     return x
 
 
+def accum_int_dtype() -> torch.dtype:
+    """Dtype of count-accumulator states: int64, always (the JAX package's
+    counterpart picks int32 unless ``jax_enable_x64`` is set)."""
+    return torch.int64
+
+
 def dim_zero_sum(x: Tensor) -> Tensor:
     return torch.sum(x, dim=0)
 
@@ -160,3 +166,21 @@ def apply_to_collection(
         return elem_type([apply_to_collection(d, dtype, function, *args, **kwargs) for d in data])
 
     return data
+
+
+def get_group_indexes(idx: Tensor) -> List[Tensor]:
+    """Row positions grouped by the value of ``idx``, groups in order of first appearance.
+
+    Host-side (one read of ``idx``), as in the JAX package; the retrieval
+    metrics never call it: they group with sorted segment operations
+    (``metrics_tpu_torch/functional/retrieval/segments.py``).
+
+    Example:
+        >>> import torch
+        >>> [g.tolist() for g in get_group_indexes(torch.tensor([0, 0, 1, 1, 1]))]
+        [[0, 1], [2, 3, 4]]
+    """
+    res: dict = {}
+    for i, v in enumerate(idx.tolist()):
+        res.setdefault(v, []).append(i)
+    return [torch.tensor(g, dtype=torch.int32, device=idx.device) for g in res.values()]
