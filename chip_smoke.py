@@ -109,7 +109,29 @@ Phases, in order; each raises on failure and none is caught:
    compute makes no synchronizing call but the gather's two. Prints ms per step, epoch ``compute()`` ms,
    each mode's profiled epoch (device ms, the sort kernels' share, operations, synchronizing calls) and
    peak device memory. Path F runs no hand-written kernel: the JAX package computes retrieval in XLA.
-10. The ``kernels`` JSON line, then the device JSON as the last line.
+10. Path G, the mergeable sketch states, in the same group with ``device="cuda"`` and ``dist_sync_on_step``
+   (nothing caught). G1: ``MetricCollection([AUROC, AveragePrecision, ROC, PrecisionRecallCurve])`` with
+   ``approx="sketch"`` and 2,048 bins (one compute group) over path B's 10 batches of 4,194,304 scores, then
+   AUROC and AveragePrecision with ``approx="qsketch"`` on their logits. G2: AUROC (macro) and AveragePrecision
+   with ``approx="sketch"`` and ``num_classes=1000`` over path A's 20 batches: a ``(1000, 2, 2048)`` int64 state
+   (32.8 MB) reduced every step. G3: Spearman and Kendall with ``approx="sketch"`` (512 bins, the range-free
+   grid) and with ``approx="qsketch"``, over E1's 10 steps of 4,194,304 lognormal pairs. G4: ``Quantile(q=(0.5,
+   0.9, 0.99, 0.999))`` and ``Percentile(p=(50, 99, 99.9))`` (one group) over 10 steps of 4,194,304 request
+   latencies in seconds (lognormal, 20 ms median, sigma 1, 0.1% outliers at 50x, exact zeros, 16 NaN and 4
+   +inf a step), and ``MedianAbsoluteError`` over E1's pairs. G5: a count-min state of ``CMSTail``'s default
+   grid (4 x 4,096, seed 29) declared through ``add_state`` in a metric of this script, fed 10 steps of
+   1,048,576 int keys drawn Zipf(1.1) over 1,000,000 distinct keys, hashed and bucketed on the host and
+   scattered on the card. Every count state equals the port's CPU run and a numpy ``bincount`` oracle bit for
+   bit (the qsketch grids against their float64-exact buckets); AUROC / AP / ROC / PR equal float64 numpy over
+   the oracle counts to rtol 1e-6 and Spearman / Kendall to rtol 1e-5, per step and at the epoch; the exact
+   AUROC of G1's epoch (path C's rank oracle) lies within each sketch's ``error_bound()``; each quantile lies
+   within its ``error_bound()`` of the sample the sketch's rank selects (``np.quantile(..., method="lower")`` of
+   the non-NaN samples) and within relative alpha of ``np.quantile`` of the finite samples; each key's min-row count-min estimate is at least its true count. Each step makes one
+   update and one ``all_reduce`` per compute group, the epoch one ``all_reduce`` per group, and a profiled step
+   of G1-G4 makes no synchronizing CUDA call. Prints ms per step, epoch ``compute()`` ms, a profiled step's
+   device ms, operations and ``index_add`` (scatter) ms, and each state's bytes beside the exact mode's for the
+   same epoch. Path G runs no hand-written kernel: the JAX package updates its sketches with XLA scatter-adds.
+11. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -174,6 +196,16 @@ F_CPU_STEPS = 2  # steps the CPU run repeats per step; it holds the epoch too
 RTOL_F = 1e-6
 # against the float64 numpy oracle: the float32 roundings of the above, a few ulps
 RTOL_F_ORACLE = 1e-5
+# Path G: the sketch states at path A's, path B's and E1's sizes, latency quantiles and a count-min tail
+G_STEPS = 10  # G1 runs on path B's batches (B_STEPS of them), G2 on path A's
+G2_STEPS = A_STEPS
+G_BINS, G_RANK_BINS = 2_048, 512
+G4_N = 4_194_304
+G4_Q, G4_P = (0.5, 0.9, 0.99, 0.999), (50, 99, 99.9)
+G5_N, G5_KEYS = 1_048_576, 1_000_000
+# curve values from equal counts by float64 math rounded once to float32, against float64 numpy over the same counts
+RTOL_G_CURVE = 1e-6
+RTOL_G_RANK = 1e-5  # Spearman / Kendall from equal joint counts, the tolerance path E holds the exact modes to
 
 
 def _check(ok, what):
@@ -473,6 +505,7 @@ def phase_paths():
         path_d = run_path_d(dev)
         path_e = run_path_e(dev)
         path_f = run_path_f(dev)
+        path_g = run_path_g(dev, a_batches, b_batches)
     finally:
         dist.destroy_process_group()
 
@@ -495,9 +528,10 @@ def phase_paths():
     d_timings = check_path_d(path_d)
     e_timings = check_path_e(path_e)
     f_timings = check_path_f(path_f)
+    g_timings = check_path_g(path_g)
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
-            "f": f_timings}
+            "f": f_timings, "g": g_timings}
 
 
 def _profile_step(collection, batch):
@@ -1004,7 +1038,9 @@ def _profile_call(step, calls=5):
         sites[site] = sites.get(site, 0) + 1
     return {"device_ms": sum(r["us_per_call"] for r in rows) / 1e3, "ops": sum(r["per_call"] for r in rows),
             "host_syncs": len(syncs), "sync_sites": sorted(sites.items(), key=lambda kv: -kv[1])[:8],
-            "sort_ms": sum(r["us_per_call"] for r in rows if "sort" in r["name"].lower()) / 1e3, "top": rows[:8]}
+            "sort_ms": sum(r["us_per_call"] for r in rows if "sort" in r["name"].lower()) / 1e3,
+            "scatter_ms": sum(r["us_per_call"] for r in rows if "indexfunc" in r["name"].lower()) / 1e3,
+            "top": rows[:8]}
 
 
 def _d_close(label, got, cpu, oracle):
@@ -1831,6 +1867,412 @@ def check_path_f(result):
             "base_bytes": result["base_bytes"]}
 
 
+# ------------------------------------------------------------------------------------------- path G
+def _g_key_counts_class():
+    """A metric of the script's own: key counts in a count-min state declared through ``add_state``."""
+    import torch
+
+    from metrics_tpu_torch.core.metric import Metric
+    from metrics_tpu_torch.parallel.cms import CMSTail, CountMinSketch, cms_scatter, cms_total, make_cms_spec
+
+    class KeyCounts(Metric):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("tail", default=make_cms_spec(CMSTail(), (), torch.int64), dist_reduce_fx="sum")
+
+        def update(self, buckets):
+            ones = torch.ones(buckets.shape[0], dtype=torch.int64, device=buckets.device)
+            self.tail = CountMinSketch(cms_scatter(self.tail.counts, buckets, ones))
+
+        def compute(self):
+            return cms_total(self.tail.counts)
+
+    return KeyCounts
+
+
+def _g_collection(part, device, **kw):
+    import metrics_tpu_torch as pt
+
+    kw = dict(device=device, **kw)
+    members = {
+        "G1": lambda: [pt.AUROC(approx="sketch", num_bins=G_BINS, **kw),
+                       pt.AveragePrecision(approx="sketch", num_bins=G_BINS, **kw),
+                       pt.ROC(approx="sketch", num_bins=G_BINS, **kw),
+                       pt.PrecisionRecallCurve(approx="sketch", num_bins=G_BINS, **kw)],
+        "G1q": lambda: [pt.AUROC(approx="qsketch", **kw), pt.AveragePrecision(approx="qsketch", **kw)],
+        "G2": lambda: [pt.AUROC(approx="sketch", num_classes=A_CLASSES, num_bins=G_BINS, **kw),
+                       pt.AveragePrecision(approx="sketch", num_classes=A_CLASSES, num_bins=G_BINS, **kw)],
+        "G3": lambda: [pt.SpearmanCorrcoef(approx="sketch", num_bins=G_RANK_BINS, **kw),
+                       pt.KendallRankCorrCoef(approx="sketch", num_bins=G_RANK_BINS, **kw)],
+        "G3q": lambda: [pt.SpearmanCorrcoef(approx="qsketch", **kw), pt.KendallRankCorrCoef(approx="qsketch", **kw)],
+        "G4": lambda: [pt.Quantile(q=G4_Q, **kw), pt.Percentile(p=G4_P, **kw)],
+        "G4mae": lambda: [pt.MedianAbsoluteError(**kw)],
+        "G5": lambda: [_g_key_counts_class()(**kw)],
+    }[part]
+    return pt.MetricCollection(members())
+
+
+# the data each part runs on, by the name run_path_g gives it
+_G_DATA = {"G1": "scores", "G1q": "logits", "G2": "probs", "G3": "pairs", "G3q": "pairs", "G4": "latency",
+           "G4mae": "pairs", "G5": "buckets"}
+
+
+def _g_latencies():
+    """Request latencies in seconds: lognormal, 20 ms median, sigma 1; 0.1% outliers at 50x; 0.05% exact zeros;
+    16 NaN and 4 +inf a step."""
+    rng = np.random.default_rng(13)
+    steps = []
+    for _ in range(G_STEPS):
+        x = 0.02 * rng.lognormal(0.0, 1.0, G4_N)
+        x[rng.random(G4_N) < 0.001] *= 50
+        x[rng.random(G4_N) < 0.0005] = 0.0
+        x = x.astype(np.float32)
+        x[rng.choice(G4_N, 20, replace=False)] = [np.nan] * 16 + [np.inf] * 4
+        steps.append((x,))
+    return steps
+
+
+def _g_keys():
+    """Int keys drawn Zipf(1.1) over 1,000,000 distinct keys, and their (N, 4) count-min buckets on the host."""
+    from metrics_tpu_torch.parallel.cms import CMSTail, cms_buckets, stable_key_hash_array
+
+    tail = CMSTail()
+    rng = np.random.default_rng(14)
+    cdf = np.cumsum(np.arange(1, G5_KEYS + 1, dtype=np.float64) ** -1.1)
+    keys, buckets, hash_ms = [], [], []
+    for _ in range(G_STEPS):
+        k = np.searchsorted(cdf, rng.random(G5_N) * cdf[-1]).astype(np.int64)
+        t0 = time.perf_counter()
+        buckets.append((cms_buckets(stable_key_hash_array(k), tail.depth, tail.width, tail.seed),))
+        hash_ms.append((time.perf_counter() - t0) * 1e3)
+        keys.append(k)
+    return keys, buckets, hash_ms
+
+
+def _g_host(value):
+    """A step's value on the host: numpy arrays, keeping tuples."""
+    if isinstance(value, (list, tuple)):
+        return tuple(_g_host(v) for v in value)
+    return value.detach().cpu().numpy()
+
+
+def _g_counts(collection):
+    """{member: {state: int64 counts on the host}} of a collection of sketch metrics."""
+    return {k: {s: v.counts.cpu().numpy() for s, v in m._current_state().items()} for k, m in collection.items()}
+
+
+def run_path_g(device, a_batches, b_batches):
+    """Path G inside the caller's process group: every sketch collection forward with ``dist_sync_on_step``; the
+    updates and ``all_reduce`` calls of each step counted, the epoch compute timed, a step of G1-G4 profiled with
+    its synchronizing calls, the count states and state bytes read."""
+    import torch
+
+    from metrics_tpu_torch.parallel.sketch import sketch_nbytes
+
+    keys, buckets, hash_ms = _g_keys()
+    data = {
+        "scores": [(s, t) for s, t in b_batches],
+        "logits": [(torch.logit(s), t) for s, t in b_batches],
+        "probs": list(a_batches),
+        "pairs": _to(device, _e1_batches()),
+        "latency": _to(device, _g_latencies()),
+        "buckets": [(torch.from_numpy(b),) for (b,) in buckets],  # copied to the card in the step
+    }
+    _sync(device)
+    host = {k: [tuple(x.cpu().numpy() for x in b) for b in v] for k, v in data.items() if k != "buckets"}
+    host["buckets"] = list(buckets)
+    out = {"host": host, "keys": keys, "hash_ms": hash_ms, "parts": {}}
+    for part, kind in _G_DATA.items():
+        col = _g_collection(part, device, dist_sync_on_step=True)
+        values, ms, updates, reduces = [], [], [], []
+        for batch in data[kind]:
+            with _CountUpdates() as up, _CountCollectives() as coll:
+                t0 = time.perf_counter()
+                step_in = tuple(x.to(device) for x in batch)
+                values.append({k: _g_host(v) for k, v in col(*step_in).items()})
+                _sync(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            updates.append(up[0])
+            reduces.append(coll["all_reduce"])
+        epoch, epoch_ms, collectives, _ = _epoch_timed(col, device)
+        run = {"collection": col, "values": values, "ms": ms, "updates": updates, "reduces": reduces,
+               "epoch": {k: _g_host(v) for k, v in epoch.items()}, "epoch_ms": epoch_ms, "collectives": collectives,
+               "groups": len(col.compute_groups), "counts": _g_counts(col),
+               "bytes": {k: sum(sketch_nbytes(v) for v in m._current_state().values()) for k, m in col.items()}}
+        bounds = {}
+        for k, m in col.items():
+            for name in ("error_bound", "collision_bound"):
+                if hasattr(m, name):
+                    bounds[k] = _g_host(getattr(m, name)())
+        run["bounds"] = bounds
+        if device.type == "cuda" and part != "G5":
+            fresh = _g_collection(part, device, dist_sync_on_step=True)
+            first = data[kind][0]
+            run["profile"] = _profile_call(lambda fresh=fresh, first=first: fresh(*first))
+        out["parts"][part] = run
+    return out
+
+
+# ---- path G's oracles: numpy, no code shared with the port
+def _g_linear_bins(x, num_bins):
+    """The linear grid on [0, 1): the JAX package's float32 ``floor(x * B)``, clipped into the end bins."""
+    return np.clip(np.floor(x.astype(np.float32) * np.float32(num_bins)), 0, num_bins - 1).astype(np.int64)
+
+
+def _g_softsign_bins(x, num_bins):
+    """The range-free rank grid: the soft-sign squash in float32, then the linear grid."""
+    x = x.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        t = np.where(np.isinf(x), np.sign(x), x / (np.float32(1.0) + np.abs(x))).astype(np.float32)
+    return _g_linear_bins(np.float32(0.5) + np.float32(0.5) * t, num_bins)
+
+
+def _g_q_buckets(x, alpha, min_value, max_value):
+    """The float64-exact bucket of each value on the qsketch grid."""
+    gamma = (1.0 + alpha) / (1.0 - alpha)
+    m = max(int(np.ceil(np.log(max_value / min_value) / np.log(gamma))), 1)
+    edges = min_value * gamma ** np.arange(m + 1, dtype=np.float64)
+    return m + 1 + np.sign(x).astype(np.int64) * np.searchsorted(edges, np.abs(x.astype(np.float64)), side="right")
+
+
+def _g_oracle_counts(part, host_batch):
+    """One step's count states from numpy bincounts: {state name: counts}."""
+    from metrics_tpu_torch.parallel.cms import CMSTail
+    from metrics_tpu_torch.parallel.qsketch import (QSKETCH_ALPHA, QSKETCH_CURVE_ALPHA, QSKETCH_CURVE_RANGE,
+                                                    QSKETCH_MAX_VALUE, QSKETCH_MIN_VALUE, QSKETCH_RANK_ALPHA,
+                                                    QSKETCH_RANK_RANGE, qsketch_num_buckets)
+
+    if part in ("G1", "G1q"):
+        s, t = host_batch
+        grid = (QSKETCH_CURVE_ALPHA, *QSKETCH_CURVE_RANGE)
+        b, nb = (_g_linear_bins(s, G_BINS), G_BINS) if part == "G1" else (_g_q_buckets(s, *grid),
+                                                                          qsketch_num_buckets(*grid))
+        keep = ~np.isnan(s)
+        return {"hist": np.bincount((np.where(t == 1, 0, 1) * nb + b)[keep], minlength=2 * nb).reshape(2, nb)}
+    if part == "G2":
+        p, labels = host_batch
+        classes = np.arange(p.shape[1])
+        row = np.where(labels[:, None] == classes[None, :], 0, 1)
+        flat = (classes[None, :] * 2 + row) * G_BINS + _g_linear_bins(p, G_BINS)
+        return {"hist": np.bincount(flat.reshape(-1), minlength=p.shape[1] * 2 * G_BINS).reshape(p.shape[1], 2,
+                                                                                                    G_BINS)}
+    if part in ("G3", "G3q"):
+        p, t = host_batch
+        if part == "G3":
+            bi, bj, nb = _g_softsign_bins(p, G_RANK_BINS), _g_softsign_bins(t, G_RANK_BINS), G_RANK_BINS
+        else:
+            grid = (QSKETCH_RANK_ALPHA, *QSKETCH_RANK_RANGE)
+            bi, bj, nb = _g_q_buckets(p, *grid), _g_q_buckets(t, *grid), qsketch_num_buckets(*grid)
+        keep = ~(np.isnan(p) | np.isnan(t))
+        return {"joint": np.bincount((bi * nb + bj)[keep], minlength=nb * nb).reshape(nb, nb)}
+    grid = (QSKETCH_ALPHA, QSKETCH_MIN_VALUE, QSKETCH_MAX_VALUE)
+    if part in ("G4", "G4mae"):
+        x = host_batch[0] if part == "G4" else np.abs(host_batch[0] - host_batch[1])
+        keep = ~np.isnan(x)
+        return {"qsketch": np.bincount(_g_q_buckets(x[keep], *grid), minlength=qsketch_num_buckets(*grid))}
+    tail = CMSTail()
+    (b,) = host_batch
+    flat = np.arange(tail.depth)[None, :] * tail.width + b
+    return {"tail": np.bincount(flat.reshape(-1), minlength=tail.depth * tail.width).reshape(tail.depth, tail.width)}
+
+
+def _g_curves(counts):
+    """(AUROC, AP, fpr, tpr, precision, recall) in float64 from (..., 2, B) counts: suffix sums over the bins and a
+    terminal all-rejecting threshold, the trapezoid and the step integral."""
+    pos, neg = counts[..., 0, :].astype(np.float64), counts[..., 1, :].astype(np.float64)
+    zero = np.zeros(pos.shape[:-1] + (1,))
+    tp = np.concatenate([np.cumsum(pos[..., ::-1], -1)[..., ::-1], zero], -1)
+    fp = np.concatenate([np.cumsum(neg[..., ::-1], -1)[..., ::-1], zero], -1)
+    n_pos, n_neg = pos.sum(-1, keepdims=True), neg.sum(-1, keepdims=True)
+    tpr, fpr = tp / np.maximum(n_pos, 1), fp / np.maximum(n_neg, 1)
+    auroc = -np.sum((fpr[..., 1:] - fpr[..., :-1]) * (tpr[..., 1:] + tpr[..., :-1]) / 2, -1)
+    precision = np.where(tp + fp == 0, 0.0, tp / np.where(tp + fp == 0, 1, tp + fp))
+    precision[..., -1] = 1.0
+    recall = np.where(n_pos == 0, 0.0, tp / np.maximum(n_pos, 1))
+    ap = -np.sum((recall[..., 1:] - recall[..., :-1]) * precision[..., :-1], -1)
+    return auroc, ap, fpr, tpr, precision, recall
+
+
+def _g_ranks(h):
+    """(Spearman, Kendall tau-b) in float64 from a (B, B) joint histogram: the counts-weighted correlation of the
+    bins' midranks, and concordant minus discordant pairs over the tie-corrected pair count."""
+    h = h.astype(np.float64)
+    n, p, t = h.sum(), h.sum(1), h.sum(0)
+    r = np.cumsum(p) - p / 2 + 0.5 - (n + 1) / 2
+    s = np.cumsum(t) - t / 2 + 0.5 - (n + 1) / 2
+    spearman = np.sum(h * np.outer(r, s)) / np.sqrt(np.sum(p * r * r) * np.sum(t * s * s))
+    below_right = np.zeros_like(h)  # pairs (i' > i, j' > j)
+    below_right[:-1, :-1] = np.cumsum(np.cumsum(h[::-1, ::-1], 0), 1)[::-1, ::-1][1:, 1:]
+    below = np.zeros_like(h)  # rows i' > i, all columns
+    below[:-1] = np.cumsum(h[::-1], 0)[::-1][1:]
+    below_left = np.zeros_like(h)  # pairs (i' > i, j' < j)
+    below_left[:, 1:] = np.cumsum(below, 1)[:, :-1]
+    n0 = n * (n - 1) / 2
+    tau = (np.sum(h * below_right) - np.sum(h * below_left)) / np.sqrt(
+        (n0 - np.sum(p * (p - 1)) / 2) * (n0 - np.sum(t * (t - 1)) / 2))
+    return spearman, tau
+
+
+def _g_oracle_values(part, counts):
+    """{member: value} in float64 from a collection's oracle counts."""
+    h = counts["hist"] if "hist" in counts else counts.get("joint")
+    if part in ("G1", "G1q", "G2"):
+        auroc, ap, fpr, tpr, precision, recall = _g_curves(h)
+        values = {"AUROC": auroc.mean() if part == "G2" else auroc, "AveragePrecision": ap}
+        if part == "G1":
+            values.update({"ROC": (fpr, tpr), "PrecisionRecallCurve": (precision, recall)})
+        return values
+    if part in ("G3", "G3q"):
+        spearman, tau = _g_ranks(h)
+        return {"SpearmanCorrcoef": spearman, "KendallRankCorrCoef": tau}
+    return None
+
+
+def _g_close(label, got, want, rtol):
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    if not np.allclose(got, want, rtol=rtol, atol=0.0, equal_nan=True):
+        bad = ~np.isclose(got, want, rtol=rtol, atol=0.0, equal_nan=True)
+        raise AssertionError(f"{label}: {np.count_nonzero(bad)} values off, e.g. card {got[bad][:3]} vs"
+                             f" oracle {want[bad][:3]}")
+    nz = want != 0
+    return float(np.max(np.abs(got[nz] - want[nz]) / np.abs(want[nz]), initial=0.0))
+
+
+def check_path_g(result):
+    """Every count state against the CPU run and the numpy bincount oracle; values against the float64 oracles;
+    the certificates; one update and one all_reduce a compute group a step; no synchronizing call in a profiled
+    G1-G4 step."""
+    import warnings
+
+    import torch
+
+    from metrics_tpu_torch.parallel.cms import CMSTail, cms_buckets, stable_key_hash_array
+    from metrics_tpu_torch.parallel.qsketch import QSKETCH_ALPHA, QSKETCH_MAX_VALUE, QSKETCH_MIN_VALUE
+
+    warnings.simplefilter("ignore")
+    host, parts = result["host"], result["parts"]
+    timings = {}
+    for part, run in parts.items():
+        batches = host[_G_DATA[part]]
+        # the port's CPU run: one update a step, the same host inputs
+        cpu = _g_collection(part, "cpu")
+        for batch in batches:
+            cpu.update(*(torch.from_numpy(x) for x in batch))
+        cpu_counts = _g_counts(cpu)
+        total, worst = None, 0.0
+        for step, batch in enumerate(batches):
+            counts = _g_oracle_counts(part, batch)
+            total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+            oracle = _g_oracle_values(part, counts)
+            if oracle is None:
+                continue
+            for k, want in oracle.items():
+                got = run["values"][step][k]
+                rtol = RTOL_G_RANK if part.startswith("G3") else RTOL_G_CURVE
+                if isinstance(want, tuple):
+                    worst = max([worst] + [_g_close(f"path {part} step {step} {k}", g, w, rtol)
+                                           for g, w in zip(got, want)])
+                else:
+                    worst = max(worst, _g_close(f"path {part} step {step} {k}", got, want, rtol))
+        for member, states in run["counts"].items():
+            for name, counts in states.items():
+                if not (np.array_equal(counts, cpu_counts[member][name]) and np.array_equal(counts, total[name])):
+                    raise AssertionError(f"path {part} {member}.{name}: card counts differ from the CPU run or the"
+                                         f" numpy oracle")
+        n = int(next(iter(total.values())).sum())
+        print(f"  ok: path {part} count states ({', '.join(sorted(total))}, {n} counts) equal the CPU run and the"
+              f" numpy bincount oracle bit for bit")
+        oracle = _g_oracle_values(part, total)
+        if oracle is not None:
+            for k, want in oracle.items():
+                got = run["epoch"][k]
+                rtol = RTOL_G_RANK if part.startswith("G3") else RTOL_G_CURVE
+                pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+                worst = max([worst] + [_g_close(f"path {part} epoch {k}", g, w, rtol) for g, w in pairs])
+            shown = {k: (float(v) if np.ndim(v) == 0 else f"({np.shape(v)[0]},)") for k, v in run["epoch"].items()
+                     if not isinstance(v, tuple)}
+            print(f"  ok: path {part} values per step and at the epoch equal the float64 oracle over the oracle counts"
+                  f" (rtol {RTOL_G_RANK if part.startswith('G3') else RTOL_G_CURVE}; max rel diff {worst:.3g});"
+                  f" epoch {shown}")
+        steps = len(batches)
+        _check(run["updates"] == [run["groups"]] * steps and run["reduces"] == [run["groups"]] * steps,
+               f"path {part}: {run['groups']} compute group(s), one update and one all_reduce a group every step")
+        _check(run["collectives"] == {"all_reduce": run["groups"], "all_gather": 0},
+               f"path {part} epoch compute: {run['collectives']}, one all_reduce a compute group")
+        prof = run.get("profile")
+        timing = {"ms_per_step": statistics.median(run["ms"]), "first_step_ms": run["ms"][0],
+                  "epoch_ms": run["epoch_ms"], "state_bytes": run["bytes"]}
+        print(f"[10] path {part}: {steps} steps: median {timing['ms_per_step']:.3f} ms/step (first step"
+              f" {run['ms'][0]:.1f} ms); epoch compute {run['epoch_ms'][0]:.2f} ms (again {run['epoch_ms'][1]:.2f} ms);"
+              f" state bytes {run['bytes']}")
+        if prof is not None:
+            scatter = prof["scatter_ms"]
+            timing.update({"profile_device_ms": prof["device_ms"], "profile_ops": prof["ops"],
+                           "scatter_ms": scatter, "host_syncs": prof["host_syncs"]})
+            print(f"    path {part} step, profiled: {prof['device_ms']:.3f} ms device time, {prof['ops']:g} device"
+                  f" operations, index_add (scatter) kernels {scatter:.3f} ms, {prof['host_syncs']} synchronizing"
+                  f" CUDA calls")
+            for op in prof["top"]:
+                print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
+            if prof["host_syncs"]:
+                print(f"    path {part} synchronizing calls at {prof['sync_sites']}")
+        timings[part] = timing
+    for part, timing in timings.items():  # after every part has printed its profile
+        if "host_syncs" in timing:
+            _check(timing["host_syncs"] == 0, f"path {part}: a profiled step makes no synchronizing CUDA call")
+
+    # the certificates: the exact AUROC of path C's rank oracle over G1's epoch
+    scores = np.concatenate([s for s, _ in host["scores"]])
+    target = np.concatenate([t for _, t in host["scores"]])
+    exact_auroc = _curve_oracle(scores, target)[0]
+    for part in ("G1", "G1q"):
+        got, bound = float(parts[part]["epoch"]["AUROC"]), float(parts[part]["bounds"]["AUROC"])
+        _check(abs(got - exact_auroc) <= bound,
+               f"path {part}: |sketch AUROC {got:.7f} - exact AUROC {exact_auroc:.7f}| = {abs(got - exact_auroc):.3g}"
+               f" <= error_bound() {bound:.3g}")
+
+    # quantiles: within error_bound() of the sample the sketch's rank selects, and within alpha of np.quantile of the
+    # finite samples
+    grid = (QSKETCH_ALPHA, QSKETCH_MIN_VALUE, QSKETCH_MAX_VALUE)
+    latency = np.concatenate([x for (x,) in host["latency"]]).astype(np.float64)
+    err = np.concatenate([np.abs(p - t) for p, t in host["pairs"]]).astype(np.float64)
+    for part, member, q, samples in (("G4", "Quantile", G4_Q, latency), ("G4", "Percentile", tuple(v / 100 for v in G4_P),
+                                                                         latency),
+                                     ("G4mae", "MedianAbsoluteError", 0.5, err)):
+        got = np.atleast_1d(parts[part]["epoch"][member]).astype(np.float64)
+        bound = np.atleast_1d(parts[part]["bounds"][member])
+        ranked = np.quantile(samples[~np.isnan(samples)], q, method="lower")
+        finite = np.quantile(samples[np.isfinite(samples)], q)
+        _check(np.all(bound == grid[0]) and np.all(np.abs(got - ranked) <= bound * np.abs(ranked) + grid[1])
+               and np.all(np.abs(got - finite) <= grid[0] * np.abs(finite) + grid[1]),
+               f"path {part} {member} q={q}: {np.round(got, 6).tolist()} within error_bound() {bound.tolist()} of the"
+               f" ranked samples {np.round(ranked, 6).tolist()}, and within relative alpha of np.quantile of the"
+               f" finite samples (relative {np.round(np.abs(got - finite) / np.abs(finite), 5).tolist()})")
+
+    # count-min: every key's min-row estimate is an overcount
+    tail = CMSTail()
+    counts = parts["G5"]["counts"]["KeyCounts"]["tail"]
+    true = np.bincount(np.concatenate(result["keys"]), minlength=G5_KEYS)
+    per_key = cms_buckets(stable_key_hash_array(np.arange(G5_KEYS)), tail.depth, tail.width, tail.seed)
+    estimate = counts[np.arange(tail.depth)[None, :], per_key].min(1)
+    over = estimate - true
+    _check(np.all(over >= 0) and int(parts["G5"]["epoch"]["KeyCounts"]) == true.sum(),
+           f"path G5: every key's min-row estimate >= its true count over {G5_KEYS} keys (max overcount {over.max()},"
+           f" median {int(np.median(over))}; the e/width bound is {np.e / tail.width * true.sum():.0f}); total"
+           f" {true.sum()}; host hashing and bucketing {statistics.median(result['hash_ms']):.1f} ms a step")
+
+    # state bytes beside what the exact modes would hold for the same epoch
+    n1 = scores.size
+    exact = {"G1": 4 * n1 * (4 + 8), "G1q": 2 * n1 * (4 + 8), "G2": 2 * G2_STEPS * A_BATCH * (A_CLASSES * 4 + 8),
+             "G3": 2 * 2 * err.size * 4, "G3q": 2 * 2 * err.size * 4, "G4": 2 * latency.size * 4,
+             "G4mae": err.size * 4, "G5": int((true > 0).sum()) * 16}
+    for part, run in parts.items():
+        timings[part]["exact_bytes"] = exact[part]
+    print("    path G state bytes (sketch_nbytes, summed over members) beside the exact mode's for the same epoch: "
+          + "; ".join(f"{p} {sum(r['bytes'].values()):,} vs {exact[p]:,}" for p, r in parts.items()))
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -1873,6 +2315,7 @@ def main() -> int:
         "path_d2_ms_per_step": paths["d"]["D2"]["ms_per_step"],
         **{f"path_{k.lower()}_ms_per_step": paths["e"][k]["ms_per_step"] for k in ("E1", "E2", "E4")},
         "path_f_ms_per_step": paths["f"]["ms_per_step"],
+        "path_g_ms_per_step": {k: v["ms_per_step"] for k, v in paths["g"].items()},
     }
 
     print(json.dumps({"kernels": [kernel]}))

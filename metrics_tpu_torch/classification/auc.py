@@ -10,6 +10,7 @@ from torch import Tensor
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.functional.classification.auc import _auc_compute, _auc_update
 from metrics_tpu_torch.parallel.buffer import as_values
+from metrics_tpu_torch.utils.prints import rank_zero_warn_once
 
 
 class AUC(Metric):
@@ -34,6 +35,15 @@ class AUC(Metric):
         self.reorder = reorder
         self.add_state("x", default=[], dist_reduce_fx=None)
         self.add_state("y", default=[], dist_reduce_fx=None)
+        rank_zero_warn_once(
+            "Metric `AUC` stores every (x, y) point in an O(samples) buffer"
+            " state, so memory and sync traffic grow with the dataset. For"
+            " score curves, prefer the constant-memory sketch modes of the"
+            " curve metrics — `AUROC(approx=\"qsketch\")` is the RANGE-FREE"
+            " fix (auto-ranged log-bucketed grid, no sketch_range assumption"
+            " on raw scores); `AUROC(approx=\"sketch\")` / `BinnedAUROC`"
+            " integrate on a fixed grid — all syncing with one all_reduce."
+        )
 
     def update(self, x: Tensor, y: Tensor) -> None:
         x, y = _auc_update(x, y)

@@ -1,21 +1,31 @@
-"""AUROC module: exact area under the ROC curve over every prediction seen.
+"""AUROC module: area under the ROC curve over every prediction seen, exact or sketched.
 
-Counterpart of ``metrics_tpu/classification/auroc.py`` in its exact mode; the
-sketch modes (``approx=``) raise ``NotImplementedError``.
+Counterpart of ``metrics_tpu/classification/auroc.py``.
 """
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.classification._curve_base import _ExactCurveMetric, check_approx
+from metrics_tpu_torch.classification._curve_base import _CurveMetric
 from metrics_tpu_torch.functional.classification.auroc import _auroc_compute, _auroc_update
 from metrics_tpu_torch.parallel.buffer import as_values
+from metrics_tpu_torch.parallel.qsketch import QSKETCH_CURVE_ALPHA
+from metrics_tpu_torch.parallel.sketch import auroc_error_bound, auroc_from_histogram
 from metrics_tpu_torch.utils.checks import _input_format_classification
 
 
-class AUROC(_ExactCurveMetric):
+class AUROC(_CurveMetric):
     """Area under the ROC curve, over all data seen.
+
+    ``approx="sketch"`` replaces the prediction states with a constant-memory
+    histogram sketch of ``num_bins`` score bins per class over
+    ``sketch_range``: the update is one scatter, the sync one ``all_reduce``,
+    and ``compute`` takes the AUROC from the sketched ROC with an error bounded
+    by the in-bin collision mass (:meth:`error_bound`). ``approx="qsketch"``
+    bins raw scores on the log-bucketed grid of relative accuracy ``alpha``,
+    with no ``sketch_range`` to choose. Multiclass / multilabel sketch modes
+    need ``num_classes`` at construction; ``max_fpr`` needs the exact mode.
 
     Example (binary):
         >>> import torch
@@ -25,6 +35,17 @@ class AUROC(_ExactCurveMetric):
         >>> float(auroc(preds, target))
         0.5
     """
+
+    _APPROX_MODES = ("sketch", "qsketch")
+    _EXACT_WARNING = (
+        "Metric `AUROC` stores every prediction and target in an O(samples)"
+        " buffer state, so memory and sync traffic grow with the dataset."
+        " Construct with `approx=\"qsketch\"` for a constant-memory"
+        " AUTO-RANGED histogram sketch (no sketch_range assumption on raw"
+        " logits) that syncs with one all_reduce, `approx=\"sketch\"` for the"
+        " fixed-grid variant, or use `BinnedAUROC`; exact buffers remain"
+        " the default."
+    )
 
     def __init__(
         self,
@@ -38,11 +59,13 @@ class AUROC(_ExactCurveMetric):
         dist_sync_fn: Optional[Callable] = None,
         capacity: Optional[int] = None,
         approx: Optional[str] = None,
+        num_bins: int = 2048,
+        sketch_range: Tuple[float, float] = (0.0, 1.0),
+        alpha: float = QSKETCH_CURVE_ALPHA,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        check_approx(approx, ("sketch", "qsketch"))
         super().__init__(num_classes, pos_label, compute_on_step, dist_sync_on_step, process_group, dist_sync_fn,
-                         capacity, device)
+                         capacity, device, approx, num_bins, sketch_range, alpha)
         self.average = average
         self.max_fpr = max_fpr
 
@@ -55,8 +78,17 @@ class AUROC(_ExactCurveMetric):
             if not isinstance(max_fpr, float) or not 0 < max_fpr <= 1:
                 raise ValueError(f"`max_fpr` should be a float in range (0, 1], got: {max_fpr}")
         self.mode = None
+        if self.approx is not None and self.max_fpr is not None:
+            raise ValueError(
+                f"`max_fpr` (partial AUC) is not supported with approx={self.approx!r};"
+                " use the exact buffer mode."
+            )
+        self._add_states()
 
     def update(self, preds: Tensor, target: Tensor) -> None:
+        if self.approx is not None:
+            self._sketch_update(preds, target)
+            return
         preds, target, mode = _auroc_update(preds, target)
         self._append("preds", preds)
         self._append("target", target)
@@ -67,7 +99,31 @@ class AUROC(_ExactCurveMetric):
             )
         self.mode = mode
 
+    def _sketch_compute(self) -> Tensor:
+        counts = self.hist.counts
+        if counts.ndim == 2:
+            return auroc_from_histogram(counts)
+        if self.average == "micro":
+            return auroc_from_histogram(torch.sum(counts, dim=0))
+        per_class = auroc_from_histogram(counts)  # (C,)
+        if self.average == "macro":
+            return torch.mean(per_class)
+        if self.average == "weighted":
+            support = torch.sum(counts[:, 0, :], dim=-1).to(torch.float32)
+            return torch.sum(per_class * support / torch.clamp(torch.sum(support), min=1.0))
+        return per_class
+
+    def error_bound(self) -> Tensor:
+        """Certificate of the sketch modes: ``|sketch AUROC - exact AUROC| <=
+        bound``, half the in-bin collision mass, on either grid; per class for
+        the multiclass / multilabel layouts."""
+        if self.approx is None:
+            raise ValueError("error_bound() needs approx='sketch' or 'qsketch'")
+        return auroc_error_bound(self.hist.counts)
+
     def compute(self) -> Tensor:
+        if self.approx is not None:
+            return self._sketch_compute()
         preds, target = as_values(self.preds), as_values(self.target)
         mode = self.mode
         if mode is None:  # a rank with no update of its own computes from the gathered states

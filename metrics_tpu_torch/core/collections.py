@@ -298,6 +298,8 @@ class MetricCollection(nn.ModuleDict):
             return False
         if isinstance(a, list):
             return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, dict):  # a buffer's {"data", "count"} or a sketch's {"sketch_counts"}
+            return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
         return np.array_equal(a, b)
 
     def _states_match(self, rep: Metric, member: Metric) -> bool:

@@ -16,10 +16,15 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
   :class:`~metrics_tpu_torch.parallel.buffer.PaddedBuffer` s, declared with an
   ``item_shape`` or promoted at the first append from the batch's item shape
   and dtype;
+* the mergeable sketch states: ``add_state`` takes a ``SketchSpec``,
+  ``QSketchSpec`` or ``CMSSpec`` (``dist_reduce_fx="sum"``) and the state is a
+  NamedTuple holding one int64 ``counts`` tensor (``metric.hist.counts``),
+  materialized at every reset, moved by ``.to()``, merged by addition and
+  synced in the sum bucket;
 * ``reset``, and ``state_dict`` / ``load_state_dict`` in the JAX package's key
-  layout (host numpy values, a buffer as ``{"data", "count"}``, plus
-  ``_count_bound`` and ``_epoch_watermark``), so a checkpoint of either
-  package loads into the other;
+  layout (host numpy values, a buffer as ``{"data", "count"}``, a sketch as
+  ``{"sketch_counts"}``, plus ``_count_bound`` and ``_epoch_watermark``), so a
+  checkpoint of either package loads into the other;
 * the compute-group fingerprint ``_group_fingerprint``, in both forms: the
   update attributes a class lists, or every config attribute but the
   compute-only ones it lists;
@@ -41,6 +46,9 @@ import torch
 from torch import Tensor, nn
 
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_append, buffer_init
+from metrics_tpu_torch.parallel.cms import CMSSpec, cms_init
+from metrics_tpu_torch.parallel.qsketch import QSketchSpec, qsketch_init
+from metrics_tpu_torch.parallel.sketch import SketchSpec, is_sketch, sketch_init
 from metrics_tpu_torch.parallel.sync import (
     ReduceFx,
     all_reduce_state,
@@ -67,6 +75,25 @@ _NON_CONFIG_ATTRS = frozenset(vars(nn.Module())) | frozenset(_WRAPPER_ATTRS) | f
 })
 
 
+# every first-class state declaration kind maps to its materializer here, so
+# add_state and the reset path branch on one table
+_SPEC_MATERIALIZERS = {
+    SketchSpec: sketch_init,
+    CMSSpec: cms_init,
+    QSketchSpec: qsketch_init,
+}
+
+# the spec kinds whose states are sum-mergeable by construction (merge is
+# elementwise add, sync the sum bucket): add_state requires dist_reduce_fx="sum".
+# All of them so far; the keyed slab, when ported, is materialized but not one.
+_SUM_MERGEABLE_SPECS = tuple(_SPEC_MATERIALIZERS)
+
+
+def materialize_state_spec(spec: Any, device: Optional[torch.device] = None) -> Any:
+    """A fresh state for a registered spec on ``device``."""
+    return _SPEC_MATERIALIZERS[type(spec)](spec, device)
+
+
 class _BufferSpec(NamedTuple):
     """The layout a cat state's PaddedBuffer is (re)built with at every reset."""
 
@@ -85,6 +112,14 @@ def _fingerprint_value(v: Any) -> Any:
     if isinstance(v, Tensor):
         arr = v.detach().cpu().numpy()
         return ("arr", arr.shape, str(arr.dtype), arr.tobytes())
+    # the state specs before the generic tuple arm: a stable tag, and the grid
+    # parameters as key material (two states merge soundly only on equal grids)
+    if isinstance(v, SketchSpec):
+        return ("sketchspec", v.kind, v.shape, str(v.dtype), v.lo, v.hi)
+    if isinstance(v, QSketchSpec):
+        return ("qsketchspec", v.kind, v.shape, str(v.dtype), v.alpha, v.min_value, v.max_value)
+    if isinstance(v, CMSSpec):
+        return ("cmsspec", v.depth, v.width, v.item_shape, str(v.dtype), v.seed)
     if isinstance(v, (list, tuple)):
         return (type(v).__name__, tuple(_fingerprint_value(x) for x in v))
     if isinstance(v, dict):
@@ -181,7 +216,24 @@ class Metric(nn.Module, ABC):
         or an empty list (cat state). A list state may declare ``item_shape`` /
         ``item_dtype`` (default float32): with a ``capacity`` it is then a
         PaddedBuffer from the start, and without one the layout lets a rank
-        with no rows enter the cross-rank gather."""
+        with no rows enter the cross-rank gather.
+
+        ``default`` may also be a ``SketchSpec`` (histogram / rank sketch), a
+        ``QSketchSpec`` (quantile sketch) or a ``CMSSpec`` (count-min): the
+        state is then a zero-count sketch of the spec's shape, merged by
+        elementwise addition and synced in the sum bucket, so
+        ``dist_reduce_fx`` must be ``"sum"``."""
+        if isinstance(default, _SUM_MERGEABLE_SPECS):
+            if dist_reduce_fx != "sum":
+                raise ValueError(
+                    f"{type(default).__name__} states are sum-mergeable by construction;"
+                    f" declare them with dist_reduce_fx='sum' (got {dist_reduce_fx!r})"
+                )
+            self._defaults[name] = default
+            self._persistent[name] = persistent
+            self._reductions[name] = "sum"
+            setattr(self, name, materialize_state_spec(default, self.device))
+            return
         is_list = isinstance(default, list) and len(default) == 0
         is_arraylike = isinstance(default, (int, float, np.ndarray, Tensor)) and not isinstance(default, bool)
         if not (is_list or is_arraylike):
@@ -221,6 +273,8 @@ class Metric(nn.Module, ABC):
         current.append(value)
 
     def _materialize(self, default: Any) -> Any:
+        if isinstance(default, _SUM_MERGEABLE_SPECS):
+            return materialize_state_spec(default, self.device)
         if isinstance(default, _BufferSpec):
             return buffer_init(default.capacity, default.item_shape, default.dtype, device=self.device)
         return default.clone() if isinstance(default, Tensor) else []
@@ -403,6 +457,8 @@ class Metric(nn.Module, ABC):
             value = getattr(self, name)
             if isinstance(value, PaddedBuffer):
                 setattr(self, name, PaddedBuffer(fn(value.data), fn(value.count)))
+            elif is_sketch(value):
+                setattr(self, name, type(value)(fn(value.counts)))
             elif isinstance(value, list):
                 setattr(self, name, [fn(v) for v in value])
         self.device = fn(torch.empty(0, device=self.device)).device
@@ -423,6 +479,8 @@ class Metric(nn.Module, ABC):
                     destination[prefix + key] = [v.detach().cpu().numpy() for v in value]
                 elif isinstance(value, PaddedBuffer):
                     destination[prefix + key] = {"data": value.data.cpu().numpy(), "count": value.count.cpu().numpy()}
+                elif is_sketch(value):
+                    destination[prefix + key] = {"sketch_counts": value.counts.cpu().numpy()}
                 else:
                     destination[prefix + key] = value.detach().cpu().numpy()
         destination[prefix + "_count_bound"] = np.asarray(self._count_bound, dtype=np.int64)
@@ -442,6 +500,14 @@ class Metric(nn.Module, ABC):
                 if isinstance(default, list):  # resumes a buffer: later resets rebuild it
                     self._defaults[key] = _BufferSpec(data.shape[0], tuple(data.shape[1:]), data.dtype)
                 setattr(self, key, PaddedBuffer(data, count))
+            elif isinstance(value, dict) and set(value) == {"sketch_counts"}:
+                # the live state's kind; the JAX package saves int32 counts
+                # without x64, so they take the spec's dtype
+                current = getattr(self, key)
+                if not is_sketch(current):
+                    raise ValueError(f"checkpoint entry '{key}' holds sketch counts but the state is not a sketch")
+                counts = torch.tensor(np.asarray(value["sketch_counts"]), dtype=default.dtype, device=self.device)
+                setattr(self, key, type(current)(counts))
             elif isinstance(value, list):
                 setattr(self, key, [torch.tensor(np.asarray(v), device=self.device) for v in value])
             else:

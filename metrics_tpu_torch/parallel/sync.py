@@ -13,6 +13,11 @@ Counterpart of the host plane of ``metrics_tpu/parallel/sync.py``. Two forms:
   flatten list states), then apply the per-state reduction, the reference
   ``_sync_dist`` semantics. The tests use it as a fake multi-rank world.
 
+Sketch states (histogram, rank, quantile and count-min: a NamedTuple of one
+integer ``counts`` tensor, ``dist_reduce_fx="sum"``) ride the sum bucket of
+their dtype like any tensor: one ``all_reduce`` per state dtype of a group,
+bit-exact, whatever the traffic.
+
 Gather states — cat (list) states, stack (``None`` or callable) tensor
 states and :class:`~metrics_tpu_torch.parallel.buffer.PaddedBuffer` states —
 take the gather plane of :func:`all_reduce_state`: ONE ``all_gather`` of a
@@ -31,6 +36,7 @@ import torch.distributed as dist
 from torch import Tensor
 
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_compact_gathered, buffer_merge, handle_overflow
+from metrics_tpu_torch.parallel.sketch import is_sketch, sketch_merge
 from metrics_tpu_torch.utils.data import dim_zero_cat, dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum
 
 # A reduction spec as accepted by ``Metric.add_state``.
@@ -86,6 +92,8 @@ def merge_values(fx: ReduceFx, acc: Any, delta: Any) -> Any:
     syncs ranks also folds a batch delta into the accumulator."""
     if isinstance(acc, PaddedBuffer):
         return buffer_merge(acc, delta)
+    if is_sketch(acc):
+        return sketch_merge(acc, delta)
     if isinstance(acc, list):
         if isinstance(delta, PaddedBuffer):
             # the delta's first append promoted the state to a buffer (a metric
@@ -235,6 +243,11 @@ def _gather_states(
     return out
 
 
+def _tensor_of(value: Any) -> Tensor:
+    """The tensor a reduce state syncs: a sketch's counts, or the state itself."""
+    return value.counts if is_sketch(value) else value
+
+
 def all_reduce_state(
     state: Dict[str, Any],
     reductions: Dict[str, ReduceFx],
@@ -262,19 +275,22 @@ def all_reduce_state(
         if _is_gather_state(value, fx):
             gather_names.append(name)
         else:
-            buckets.setdefault((value.dtype, _REDUCE_OPS[fx]), []).append(name)
+            buckets.setdefault((_tensor_of(value).dtype, _REDUCE_OPS[fx]), []).append(name)
 
     ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
     out = dict(state)
     world = None
     for (_dtype, op), names in buckets.items():
-        flat = torch.cat([state[n].reshape(-1) for n in names])
+        flat = torch.cat([_tensor_of(state[n]).reshape(-1) for n in names])
         dist.all_reduce(flat, op=ops[op], group=group)
         offset = 0
         for n in names:
-            v = state[n]
+            v = _tensor_of(state[n])
             piece = flat[offset: offset + v.numel()].view(v.shape)
             offset += v.numel()
+            if is_sketch(state[n]):
+                out[n] = type(state[n])(piece)
+                continue
             if reductions[n] == "mean":
                 if world is None:
                     world = dist.get_world_size(group)
@@ -318,6 +334,9 @@ def host_gather(
                 handle_overflow(name, int(c), g.shape[0])
             parts = [g[: int(c)] for g, c in zip(datas, counts)]
             out[name] = dim_zero_cat(parts) if parts else value.data[:0]
+            continue
+        if is_sketch(value):
+            out[name] = type(value)(stacked_reduction(fx)(torch.stack(list(gather_fn(value.counts)))))
             continue
         if isinstance(value, list):
             flat = [g for elem in value for g in gather_fn(elem)]

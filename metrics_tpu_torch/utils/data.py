@@ -5,8 +5,9 @@ comparing against ``arange`` (out-of-range labels give an all-zero row, as
 ``jax.nn.one_hot`` does), and ties in ``select_topk`` go to the lowest index,
 as ``jax.lax.top_k`` breaks them.
 """
-from typing import Any, Callable, List, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -57,6 +58,31 @@ def accum_int_dtype() -> torch.dtype:
     """Dtype of count-accumulator states: int64, always (the JAX package's
     counterpart picks int32 unless ``jax_enable_x64`` is set)."""
     return torch.int64
+
+
+# (what, config, device) -> a constant made on the host once and kept on that
+# device: copying it from the host on every call would be a synchronizing call
+_DEVICE_CONSTANTS: Dict[tuple, Tensor] = {}
+
+
+def device_constant(key: tuple, device: torch.device, make: Callable[[], Any], dtype: torch.dtype) -> Tensor:
+    """The tensor ``make()`` (host numpy) of ``dtype`` on ``device``, built once per ``key`` and device."""
+    full = (*key, str(device))
+    value = _DEVICE_CONSTANTS.get(full)
+    if value is None:
+        value = _DEVICE_CONSTANTS[full] = torch.tensor(np.asarray(make()), dtype=dtype).to(device)
+    return value
+
+
+def scatter_count(counts: Tensor, flat_index: Tensor, keep: Tensor) -> Tensor:
+    """``counts`` plus one at ``flat_index`` (into its row-major flat view) for
+    every sample whose ``keep`` is set, a new tensor: the update of the sketch
+    states. One ``index_add`` with the kept flags as the increments, so a
+    dropped sample adds zero at a valid cell and the shapes never depend on the
+    data (no host read). Integer atomics are exact in any order, so the card's
+    counts equal the CPU's."""
+    flat = counts.reshape(-1).index_add(0, flat_index.reshape(-1), keep.reshape(-1).to(counts.dtype))
+    return flat.view(counts.shape)
 
 
 def dim_zero_sum(x: Tensor) -> Tensor:

@@ -432,8 +432,11 @@ def test_mode_change_message_matches_jax():
 
 @pytest.mark.parametrize("name", ["AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve"])
 def test_sketch_modes_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        getattr(pt, name)(approx="sketch", device="cpu")
+    # the sketch modes are ported: they build the JAX package's histogram state
+    # (tests/test_torch_sketch.py holds their values); an unknown mode still raises
+    port, ref = getattr(pt, name)(approx="sketch", device="cpu"), getattr(mt, name)(approx="sketch")
+    assert tuple(port.hist.counts.shape) == tuple(ref.hist.counts.shape) == (2, 2048)
+    assert port.hist.counts.dtype == torch.int64
     with pytest.raises(ValueError):
         getattr(pt, name)(approx="bogus", device="cpu")
 
