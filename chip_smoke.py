@@ -131,7 +131,32 @@ Phases, in order; each raises on failure and none is caught:
    of G1-G4 makes no synchronizing CUDA call. Prints ms per step, epoch ``compute()`` ms, a profiled step's
    device ms, operations and ``index_add`` (scatter) ms, and each state's bytes beside the exact mode's for the
    same epoch. Path G runs no hand-written kernel: the JAX package updates its sketches with XLA scatter-adds.
-11. The ``kernels`` JSON line, then the device JSON as the last line.
+11. Path H, in the same group with ``device="cuda"`` (nothing caught), the families the JAX package computes
+   in XLA at their users' sizes, data from seeded numpy generators (nothing downloaded). H1, COCO val2017's
+   evaluation: ``MeanAveragePrecision(num_classes=80, max_detections=100, class_metrics=True)`` over 5,000
+   images in updates of 8 (ground truths 7.3 an image, geometric, one image of 64; about 1% crowd; areas
+   log-uniform over small, medium and large; 100 detections an image: jittered copies and duplicates of the
+   ground truths and background false positives, scores on a 2**-12 grid), synced at ``compute()``: every
+   key equals the port's CPU run (rtol 1e-6) and the match flags equal it bit for bit; over the first 500
+   images every key equals a loop-wise numpy pycocotools replica (rtol 1e-5); the epoch compute's peak
+   device memory stays under 8 GiB. H2, WSJ0-2mix's test set: ``MetricCollection({SNR, SI_SDR, SI_SNR,
+   PIT(si_snr, "max")})`` with ``dist_sync_on_step`` over 3,000 mixtures of 2 sources x 32,000 samples in
+   47 batches of 64, estimates the sources swapped for half the batch plus noise at 0-20 dB; H2b ``PIT``
+   over 10 batches of 64 x 3 sources: every value equals the CPU run and a float64 numpy oracle (rtol 1e-5,
+   atol 1e-4 dB), PIT's permutation the oracle's wherever its best two scores differ by more than 1e-3 dB.
+   H3, k-means of ImageNet-1k scored against its 1,281,167 train labels: the nine extrinsic and four
+   nominal scores at 1,000 x 1,000 with ``dist_sync_on_step`` (78 steps of 16,384 and one of 3,215; no
+   compute group, as in the JAX package): every contingency equals a numpy ``bincount`` bit for bit, the
+   closed forms numpy float64 (rtol 1e-6), the epoch AMI the port's CPU float64 run, and the AMI of the first
+   131,072 labels a ``scipy.special.gammaln`` EMI oracle. H4, ResNet-50 features of ImageNet val:
+   ``CalinskiHarabaszScore`` and ``DaviesBouldinScore`` (list and ``capacity=``) over 50,000 x 2,048 float32
+   Gaussian blobs around 1,000 centres: equal to the CPU run (rtol 1e-5) and sklearn's formulas in float64
+   (rtol 1e-4), the same bits with TF32 allowed and not. H5: the four pairwise matrices (8,192 x 4,096 x
+   2,048) and ``embedding_similarity`` with each reduction and ``zero_diagonal``, held on 128 rows to the CPU
+   run and numpy float64, the same bits with TF32 allowed and not; ``image_gradients`` of E4's images equal
+   bit for bit. Prints ms per step, epoch ms, a profiled step's device share and peak device memory. Path H
+   runs no hand-written kernel: the JAX package computes these families in XLA, never Pallas.
+12. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -506,6 +531,7 @@ def phase_paths():
         path_e = run_path_e(dev)
         path_f = run_path_f(dev)
         path_g = run_path_g(dev, a_batches, b_batches)
+        path_h = run_path_h(dev)
     finally:
         dist.destroy_process_group()
 
@@ -529,9 +555,10 @@ def phase_paths():
     e_timings = check_path_e(path_e)
     f_timings = check_path_f(path_f)
     g_timings = check_path_g(path_g)
+    h_timings = check_path_h(path_h)
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
-            "f": f_timings, "g": g_timings}
+            "f": f_timings, "g": g_timings, "h": h_timings}
 
 
 def _profile_step(collection, batch):
@@ -2273,6 +2300,990 @@ def check_path_g(result):
     return timings
 
 
+# ---- path H: detection, audio, clustering and nominal association, and the pairwise functionals
+# H1: COCO val2017's evaluation: 5,000 images, 80 classes, ~36,800 boxes (7.3 an image), 100 detections an image
+H1_IMAGES, H1_BATCH, H1_CLASSES, H1_DETS = 5_000, 8, 80, 100
+H1_GT_MEAN, H1_GT_TAIL = 7.3, 64  # one image holds H1_GT_TAIL boxes: the tail reaches past 50
+H1_ORACLE_IMAGES = 500  # the loop-wise pycocotools replica runs over these
+H1_MEMORY_BUDGET = 8 << 30  # the stated ceiling of the epoch compute's peak device memory
+# AP and recall from equal counts, float32 divisions and means in another order
+RTOL_H1 = 1e-6
+# against the replica: precision in float64 there, float32 here, the same float32 recall and grid
+RTOL_H1_ORACLE = 1e-5
+# H2: WSJ0-2mix's test set (3,000 mixtures of 2 speakers, 8 kHz, 4 s) and Libri3Mix's 3-source layout
+H2A_MIXTURES, H2_BATCH, H2_SAMPLES, H2B_STEPS = 3_000, 64, 32_000, 10
+# dB values are 10 log10 of float32 sums over 32,000 samples, added in another order on the card, on the host and in
+# numpy float64: a relative error of ~1e-6 in a ratio is 4e-6 dB
+RTOL_DB, ATOL_DB = 1e-5, 1e-4
+PIT_MARGIN_DB = 1e-3  # PIT's choice must equal the oracle's where its best and second-best differ by more
+# H3: k-means cluster ids of ImageNet-1k's train set against its labels
+H3_N, H3_BATCH, H3_K = 1_281_167, 16_384, 1_000
+H3_ORACLE_N = 131_072  # the numpy gammaln EMI oracle's share: the first 8 steps
+H3_FOLLOW = 0.6
+# float64 closed forms from equal counts rounded once to float32, against numpy float64 over the same counts
+RTOL_H3 = 1e-6
+# the float64 EMI, card against CPU: each summand's log P is nine lgamma values of up to lgamma(N + 1) = 1.7e7
+# that cancel to O(1), and the card's lgamma and the host's differ by an ulp, so a term moves by up to
+# 9 * 1.7e7 * 2.2e-16 = 3.3e-8 relative
+RTOL_H3_EMI = 1e-7
+# H4: ResNet-50 pooled features of ImageNet's validation set, scored against 1,000 clusters
+H4_N, H4_BATCH, H4_DIM, H4_K = 50_000, 1_024, 2_048, 1_000
+H4_CAPACITY = 65_536
+# float32 moments summed in another order (cuBLAS on the card, the host BLAS on the CPU): rtol 1e-5 between the two
+# runs; against the float64 formulas, the JAX package's own tolerance for these scores, rtol 1e-4
+RTOL_H4, RTOL_H4_ORACLE = 1e-5, 1e-4
+# H5: 8,192 query against 4,096 gallery embeddings of 2,048 features; E4's images
+H5_X, H5_Y, H5_DIM = 8_192, 4_096, 2_048
+H5_ROWS = 128  # rows of x the CPU run and the float64 oracle hold (each against every column)
+# float32 products over 2,048 features in another order: an entry is off by a few eps times the L1 mass of its
+# products (|x||y| ~ 0.64 a feature: ~1.6e-4 at worst for the raw products, ~1e-7 for unit vectors); a row's
+# mean or sum by rtol 1e-5 of its entries' L1 mass
+RTOL_H5 = 1e-5
+_H5_ATOL = {"pairwise_cosine_similarity": 1e-6, "pairwise_euclidean_distance": 1e-3,
+            "pairwise_manhattan_distance": 1e-3, "pairwise_linear_similarity": 1e-3, "cosine": 1e-6, "dot": 1e-3}
+
+
+def _h_timed(device, fn):
+    """``fn()`` and its milliseconds on the host clock, synchronized."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _h_peak(device, fn):
+    """``fn()``, its milliseconds, and the peak device bytes it allocated above what was live before it."""
+    import torch
+
+    if device.type != "cuda":
+        out, ms = _h_timed(device, fn)
+        return out, ms, None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = _h_timed(device, fn)
+    return out, ms, torch.cuda.max_memory_allocated() - base
+
+
+def _h_share(device, fn, wall_ms, calls=2):
+    """Device milliseconds of one ``fn()`` (``torch.profiler``) and their share of ``wall_ms``."""
+    if device.type != "cuda":
+        return None
+    from metrics_tpu_torch.tools.cuda_timing import device_breakdown
+
+    rows = device_breakdown(fn, calls=calls)
+    device_ms = sum(r["us_per_call"] for r in rows) / 1e3
+    return {"device_ms": device_ms, "share": device_ms / wall_ms, "top": rows[:6]}
+
+
+def _h1_images(seed):
+    """Padded numpy images: detections (I, 100) and ground truths (I, G) with counts, crowd flags and classes."""
+    rng = np.random.default_rng(seed)
+    n_gt = rng.geometric(1 / H1_GT_MEAN, H1_IMAGES)
+    n_gt[rng.integers(H1_IMAGES)] = H1_GT_TAIL
+    g_max = int(n_gt.max())
+    class_p = 1.0 / np.arange(1, H1_CLASSES + 1) ** 0.8  # a few frequent classes (person, car, ...) and a long tail
+    class_p /= class_p.sum()
+    gb = np.zeros((H1_IMAGES, g_max, 4), np.float32)
+    gl = np.zeros((H1_IMAGES, g_max), np.int64)
+    gc = np.zeros((H1_IMAGES, g_max), bool)
+    db = np.zeros((H1_IMAGES, H1_DETS, 4), np.float32)
+    ds = np.zeros((H1_IMAGES, H1_DETS), np.float32)
+    dl = np.zeros((H1_IMAGES, H1_DETS), np.int64)
+
+    def boxes(n):
+        side = np.exp(rng.uniform(np.log(4.0), np.log(400.0), n))  # sqrt(area): ~45% small, 24% medium, 31% large
+        aspect = np.exp(rng.normal(0, 0.4, n))
+        w, h = side * aspect, side / aspect
+        x0, y0 = rng.uniform(0, 640 - np.minimum(w, 600)), rng.uniform(0, 480 - np.minimum(h, 440))
+        return np.stack([x0, y0, x0 + w, y0 + h], 1)
+
+    for i in range(H1_IMAGES):
+        g = int(n_gt[i])
+        gb[i, :g] = boxes(g)
+        gl[i, :g] = rng.choice(H1_CLASSES, g, p=class_p)
+        gc[i, :g] = rng.random(g) < 0.01
+        copies = rng.choice([0, 1, 1, 1, 2, 3], g)  # missed, found, found with duplicates
+        src = np.repeat(np.arange(g), copies)[:H1_DETS]
+        k = src.shape[0]
+        wh = np.tile(gb[i, src, 2:] - gb[i, src, :2], (1, 2))
+        det = gb[i, src] + rng.normal(0, 0.08, (k, 4)) * wh
+        det[:, 2:] = np.maximum(det[:, 2:], det[:, :2] + 1)
+        lab = np.where(rng.random(k) < 0.9, gl[i, src], rng.choice(H1_CLASSES, k, p=class_p))
+        score = rng.beta(5, 2, k)
+        background = H1_DETS - k
+        det = np.concatenate([det, boxes(background)])
+        lab = np.concatenate([lab, rng.choice(H1_CLASSES, background, p=class_p)])
+        score = np.concatenate([score, rng.beta(1, 6, background)])
+        order = rng.permutation(H1_DETS)
+        db[i], dl[i] = det[order], lab[order]
+        ds[i] = (np.floor(score[order] * 4096) / 4096).astype(np.float32)  # a 2**-12 grid: tied scores
+    return {"det_boxes": db, "det_scores": ds, "det_labels": dl, "gt_boxes": gb, "gt_labels": gl, "gt_crowd": gc,
+            "n_gt": n_gt}
+
+
+def _h1_batches(images, device, lo, hi):
+    """Updates of H1_BATCH images from the padded arrays on ``device``: lists of per-image dicts (views, no copy)."""
+    import torch
+
+    t = {k: torch.from_numpy(v).to(device) for k, v in images.items() if k != "n_gt"}
+    batches = []
+    for start in range(lo, hi, H1_BATCH):
+        idx = range(start, min(start + H1_BATCH, hi))
+        preds = [{"boxes": t["det_boxes"][i], "scores": t["det_scores"][i], "labels": t["det_labels"][i]} for i in idx]
+        target = [{"boxes": t["gt_boxes"][i, :images["n_gt"][i]], "labels": t["gt_labels"][i, :images["n_gt"][i]],
+                   "iscrowd": t["gt_crowd"][i, :images["n_gt"][i]]} for i in idx]
+        batches.append((preds, target))
+    return batches
+
+
+def _h1_metric(device, g_max):
+    import metrics_tpu_torch as pt
+
+    return pt.MeanAveragePrecision(num_classes=H1_CLASSES, max_detections=H1_DETS, max_gt=g_max, class_metrics=True,
+                                   device=device)
+
+
+def _h1_flags(metric):
+    """The port's match flags over the metric's states, in the in-image order ``coco_map_padded`` applies."""
+    import torch
+
+    from metrics_tpu_torch.functional.detection import map as tmap
+    from metrics_tpu_torch.parallel.buffer import as_values
+
+    state = {k: as_values(getattr(metric, k)) for k in ("det_boxes", "det_scores", "det_labels", "det_valid",
+                                                         "gt_boxes", "gt_labels", "gt_valid", "gt_crowd")}
+    valid = state["det_valid"]
+    key = torch.where(valid, state["det_scores"], torch.tensor(float("-inf"), device=valid.device))
+    order = torch.argsort(-key, dim=1, stable=True)
+    return tmap._match_flags(
+        torch.take_along_dim(state["det_boxes"], order[..., None], 1), torch.take_along_dim(valid, order, 1),
+        torch.take_along_dim(state["det_labels"], order, 1), state["gt_boxes"], state["gt_labels"], state["gt_valid"],
+        state["gt_crowd"], H1_CLASSES, max(tmap.COCO_MAX_DETS), tmap.COCO_IOU_THRESHOLDS, tmap.COCO_AREA_RANGES)
+
+
+def _h_host(values):
+    return {k: v.detach().cpu().numpy() for k, v in values.items()}
+
+
+def run_path_h1(device):
+    images = _h1_images(81)
+    g_max = int(images["n_gt"].max())
+    batches = _h1_batches(images, device, 0, H1_IMAGES)
+    metric = _h1_metric(device, g_max)
+    update_ms = []
+    for preds, target in batches:
+        _, ms = _h_timed(device, lambda: metric.update(preds, target))
+        update_ms.append(ms)
+    with _CountCollectives() as collectives:
+        epoch, epoch_ms, peak = _h_peak(device, metric.compute)
+    metric._computed = None
+    _, epoch_ms_again = _h_timed(device, metric.compute)
+    # the matching alone, on the same synced states
+    flags, match_ms = _h_timed(device, lambda: _h1_flags(metric))
+    first = _h1_metric(device, g_max)
+    for preds, target in _h1_batches(images, device, 0, H1_ORACLE_IMAGES):
+        first.update(preds, target)
+    out = {"images": images, "update_ms": update_ms, "epoch": _h_host(epoch), "epoch_ms": [epoch_ms, epoch_ms_again],
+           "peak_bytes": peak, "match_ms": match_ms, "collectives": collectives,
+           "flags": [f.cpu().numpy() for f in flags], "first": _h_host(first.compute())}
+    if device.type == "cuda":
+        def fresh_compute():
+            metric._computed = None
+            metric.compute()
+
+        out["profile"] = _h_share(device, fresh_compute, epoch_ms_again)
+        preds, target = batches[1]
+        spare = _h1_metric(device, g_max)
+        out["update_profile"] = _h_share(device, lambda: spare.update(preds, target),
+                                         statistics.median(update_ms), calls=5)
+    return out
+
+
+def _h2_batches(steps, sources, last, seed):
+    """Host (preds, target) batches: sources with random gains, estimates the sources in swapped order for half the
+    batch plus white noise at 0-20 dB SNR."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for step in range(steps):
+        b = last if step == steps - 1 else H2_BATCH
+        target = (rng.standard_normal((b, sources, H2_SAMPLES), dtype=np.float32)
+                  * rng.uniform(0.2, 1.0, (b, sources, 1)).astype(np.float32))
+        perm = np.tile(np.arange(sources), (b, 1))
+        perm[: b // 2] = np.stack([rng.permutation(sources) if sources > 2 else np.array([1, 0])
+                                   for _ in range(b // 2)])
+        swapped = np.take_along_axis(target, perm[:, :, None], 1)
+        snr_db = rng.uniform(0, 20, (b, sources, 1))
+        rms = np.sqrt(np.mean(swapped.astype(np.float64) ** 2, -1, keepdims=True))
+        noise = rng.standard_normal(swapped.shape, dtype=np.float32) * (rms * 10 ** (-snr_db / 20)).astype(np.float32)
+        out.append((swapped + noise, target))
+    return out
+
+
+def _si_snr(preds, target):
+    """PIT's per-example function: SI-SDR of the mean-centred signals."""
+    from metrics_tpu_torch.functional.audio.si_sdr import _si_sdr_per_example
+
+    return _si_sdr_per_example(preds, target, True)
+
+
+def _h2_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection({"SNR": pt.SNR(device=device, **kw), "SI_SDR": pt.SI_SDR(device=device, **kw),
+                                "SI_SNR": pt.SI_SNR(device=device, **kw),
+                                "PIT": pt.PIT(_si_snr, "max", device=device, **kw)})
+
+
+def _h2_pit(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.PIT(_si_snr, "max", device=device, **kw)
+
+
+def run_path_h2(device):
+    import torch
+
+    import metrics_tpu_torch.functional as ptf
+
+    steps_a = -(-H2A_MIXTURES // H2_BATCH)
+    parts = {"H2a": (_h2_batches(steps_a, 2, H2A_MIXTURES - (steps_a - 1) * H2_BATCH, 82), _h2_collection),
+             "H2b": (_h2_batches(H2B_STEPS, 3, H2_BATCH, 83), lambda d, **kw: _h2_pit(d, **kw))}
+    out = {}
+    for part, (host, build) in parts.items():
+        col = build(device, dist_sync_on_step=True)
+        values, ms, perms = [], [], []
+        for p, t in host:
+            batch = (torch.from_numpy(p).to(device), torch.from_numpy(t).to(device))
+            value, step_ms = _h_timed(device, lambda: col(*batch))
+            values.append({k: v.item() for k, v in value.items()} if isinstance(value, dict) else {"PIT": value.item()})
+            ms.append(step_ms)
+            perms.append(ptf.permutation_invariant_training(*batch, _si_snr, "max")[1].cpu().numpy())
+        epoch = col.compute()
+        run = {"host": host, "values": values, "ms": ms, "perms": perms,
+               "epoch": {k: v.item() for k, v in epoch.items()} if isinstance(epoch, dict) else {"PIT": epoch.item()}}
+        if device.type == "cuda":
+            fresh = build(device, dist_sync_on_step=True)
+            first = (torch.from_numpy(host[0][0]).to(device), torch.from_numpy(host[0][1]).to(device))
+            run["profile"] = _h_share(device, lambda: fresh(*first), statistics.median(ms), calls=3)
+        out[part] = run
+    return out
+
+
+_H3_EXTRINSIC = ("RandScore", "AdjustedRandScore", "MutualInfoScore", "NormalizedMutualInfoScore",
+                 "AdjustedMutualInfoScore", "HomogeneityScore", "CompletenessScore", "VMeasureScore",
+                 "FowlkesMallowsScore")
+_H3_NOMINAL = ("CramersV", "PearsonsContingencyCoefficient", "TschuprowsT", "TheilsU")
+
+
+def _h3_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    members = {name: getattr(pt, name)(H3_K, H3_K, device=device, **kw) for name in _H3_EXTRINSIC}
+    members.update({name: getattr(pt, name)(H3_K, H3_K, device=device, **kw) for name in _H3_NOMINAL})
+    return pt.MetricCollection(members)
+
+
+def _h3_labels():
+    """(cluster ids, true labels): the cluster follows the true class (through a fixed relabeling) with
+    probability 0.6, else it is uniform."""
+    rng = np.random.default_rng(84)
+    target = rng.integers(0, H3_K, H3_N)
+    relabel = rng.permutation(H3_K)
+    preds = np.where(rng.random(H3_N) < H3_FOLLOW, relabel[target], rng.integers(0, H3_K, H3_N))
+    return preds, target
+
+
+def run_path_h3(device):
+    import torch
+
+    import metrics_tpu_torch.functional as ptf
+    from metrics_tpu_torch.functional import clustering as clust
+
+    preds, target = _h3_labels()
+    col = _h3_collection(device, dist_sync_on_step=True)
+    step_values, ms, updates, reduces = [], [], [], []
+    for lo in range(0, H3_N, H3_BATCH):
+        batch = tuple(torch.from_numpy(x[lo:lo + H3_BATCH]).to(device) for x in (preds, target))
+        with _CountUpdates() as up, _CountCollectives() as coll:
+            value, step_ms = _h_timed(device, lambda: col(*batch))
+        step_values.append(torch.stack([value[k] for k in col.keys()]).cpu().numpy())
+        ms.append(step_ms)
+        updates.append(up[0])
+        reduces.append(coll["all_reduce"])
+    epoch, epoch_ms, collectives, _ = _epoch_timed(col, device)
+    cont = col["RandScore"].contingency
+    emi, emi_ms, emi_peak = _h_peak(device, lambda: clust._expected_mutual_info(cont, H3_N))
+    first = tuple(torch.from_numpy(x[:H3_ORACLE_N]).to(device) for x in (preds, target))
+    first_ami = ptf.adjusted_mutual_info_score(*first, H3_K, H3_K).item()
+    out = {"names": list(col.keys()), "step_values": step_values, "ms": ms, "updates": updates, "reduces": reduces,
+           "epoch": {k: v.item() for k, v in epoch.items()}, "epoch_ms": epoch_ms, "collectives": collectives,
+           "contingency": {k: m.contingency.cpu().numpy() for k, m in col.items()}, "emi": emi.item(),
+           "emi_ms": emi_ms, "emi_peak": emi_peak, "first_ami": first_ami, "groups": len(col.compute_groups)}
+    if device.type == "cuda":
+        fresh = _h3_collection(device, dist_sync_on_step=True)
+        step0 = (torch.from_numpy(preds[:H3_BATCH]).to(device), torch.from_numpy(target[:H3_BATCH]).to(device))
+        out["profile"] = _h_share(device, lambda: fresh(*step0), statistics.median(ms), calls=3)
+    return out
+
+
+def _h4_features():
+    """Gaussian blobs around 1,000 centres in 2,048 dimensions (ReLU-pooled features are non-negative: the centres
+    are |N(0, 1)|), each sample labeled with its nearest centre."""
+    rng = np.random.default_rng(85)
+    centres = np.abs(rng.standard_normal((H4_K, H4_DIM), dtype=np.float32))
+    assigned = rng.integers(0, H4_K, H4_N)
+    data = centres[assigned] + rng.standard_normal((H4_N, H4_DIM), dtype=np.float32) * np.float32(0.7)
+    c64 = centres.astype(np.float64)
+    dist = (data.astype(np.float64) ** 2).sum(1)[:, None] - 2 * data.astype(np.float64) @ c64.T + (c64 ** 2).sum(1)
+    return data, np.argmin(dist, 1)
+
+
+def _h4_collection(device):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection({"CH": pt.CalinskiHarabaszScore(H4_K, H4_DIM, device=device),
+                                "DB": pt.DaviesBouldinScore(H4_K, device=device),
+                                "DB_capacity": pt.DaviesBouldinScore(H4_K, capacity=H4_CAPACITY, device=device)})
+
+
+def _h_tf32(fn):
+    """``fn()`` with TF32 allowed (the card's default for convolutions and the caller's choice for matmuls) and
+    with it off; the caller's flags come back as they were."""
+    import torch
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        on = fn()
+        kept = torch.get_float32_matmul_precision() == "high" and torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        off = fn()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])
+    return on, off, kept
+
+
+def run_path_h4(device):
+    import torch
+
+    import metrics_tpu_torch.functional as ptf
+    from metrics_tpu_torch.functional.clustering_intrinsic import _cluster_moments_batch
+
+    data, labels = _h4_features()
+    x, lab = torch.from_numpy(data).to(device), torch.from_numpy(labels).to(device)
+    col = _h4_collection(device)
+    ms = []
+    for lo in range(0, H4_N, H4_BATCH):
+        _, step_ms = _h_timed(device, lambda: col.update(x[lo:lo + H4_BATCH], lab[lo:lo + H4_BATCH]))
+        ms.append(step_ms)
+    with _CountCollectives() as collectives:
+        epoch, epoch_ms, peak = _h_peak(device, col.compute)
+    on, off, kept = _h_tf32(lambda: (_cluster_moments_batch(x[:H4_BATCH], lab[:H4_BATCH], H4_K),
+                                     ptf.davies_bouldin_score(x, lab, H4_K)))
+    out = {"host": (data, labels), "ms": ms, "epoch": {k: v.item() for k, v in epoch.items()}, "epoch_ms": epoch_ms,
+           "peak_bytes": peak, "collectives": collectives, "moments": col["CH"].moments.cpu().numpy(),
+           "tf32_equal": all(torch.equal(a, b) for a, b in zip(on, off)), "tf32_flags_kept": kept}
+    if device.type == "cuda":
+        fresh = _h4_collection(device)
+        out["profile"] = _h_share(device, lambda: fresh.update(x[:H4_BATCH], lab[:H4_BATCH]), statistics.median(ms),
+                                  calls=5)
+    return out
+
+
+_H5_PAIRWISE = ("pairwise_cosine_similarity", "pairwise_euclidean_distance", "pairwise_manhattan_distance",
+                "pairwise_linear_similarity")
+
+
+def run_path_h5(device):
+    import torch
+
+    import metrics_tpu_torch.functional as ptf
+
+    rng = np.random.default_rng(86)
+    xh = rng.standard_normal((H5_X, H5_DIM), dtype=np.float32)
+    yh = rng.standard_normal((H5_Y, H5_DIM), dtype=np.float32)
+    x, y = torch.from_numpy(xh).to(device), torch.from_numpy(yh).to(device)
+    results, ms, tf32 = {}, {}, {}
+    for name in _H5_PAIRWISE + ("embedding_similarity",):
+        fn = getattr(ptf, name)
+        for reduction in (None, "mean", "sum"):
+            for zero_diagonal in (False, True):
+                if name == "embedding_similarity":
+                    red = "none" if reduction is None else reduction
+                    for similarity in ("cosine", "dot"):
+                        key = (name, similarity, reduction, zero_diagonal)
+                        value, ms[key] = _h_timed(device, lambda: fn(x, similarity, red, zero_diagonal))
+                        results[key] = value[:H5_ROWS].cpu().numpy()
+                    continue
+                key = (name, reduction, zero_diagonal)
+                value, ms[key] = _h_timed(device, lambda: fn(x, y, reduction=reduction, zero_diagonal=zero_diagonal))
+                results[key] = value[:H5_ROWS].cpu().numpy()
+        call = (lambda: fn(x)) if name == "embedding_similarity" else (lambda: fn(x, y))
+        on, off, kept = _h_tf32(call)
+        tf32[name] = (torch.equal(on, off), kept)
+    images = _e4_images(np.random.default_rng(87), E4_SHAPE)[0]
+    img = torch.from_numpy(images).to(device)
+    grads, grad_ms = _h_timed(device, lambda: ptf.image_gradients(img))
+    return {"x": xh, "y": yh, "results": results, "ms": ms, "tf32": tf32, "images": images,
+            "gradients": [g.cpu().numpy() for g in grads], "gradient_ms": grad_ms}
+
+
+def run_path_h(device):
+    """Path H inside the caller's process group: H1-H5 on the card, timed, with what the checks need on the host."""
+    return {"H1": run_path_h1(device), "H2": run_path_h2(device), "H3": run_path_h3(device),
+            "H4": run_path_h4(device), "H5": run_path_h5(device)}
+
+
+# ---- path H's oracles: numpy / scipy float64, no code shared with the port
+
+def _np_area(boxes):
+    return np.clip(boxes[:, 2] - boxes[:, 0], 0, None) * np.clip(boxes[:, 3] - boxes[:, 1], 0, None)
+
+
+def _np_iou(a, b, crowd=None):
+    """(N, M) IoU; columns flagged in ``crowd`` use intersection / detection area."""
+    inter_lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    inter_rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.clip(inter_rb - inter_lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a, area_b = _np_area(a), _np_area(b)
+    union = area_a[:, None] + area_b[None, :] - inter
+    iou = np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0)
+    if crowd is not None and crowd.any():
+        iou_cr = np.where(area_a[:, None] > 0, inter / np.where(area_a > 0, area_a, 1.0)[:, None], 0.0)
+        iou = np.where(crowd[None, :], iou_cr, iou)
+    return iou
+
+
+_COCO_THRESHOLDS = tuple(round(0.5 + 0.05 * i, 2) for i in range(10))
+_COCO_AREAS = (("all", 0.0, 1e10), ("small", 0.0, 32.0**2), ("medium", 32.0**2, 96.0**2), ("large", 96.0**2, 1e10))
+_COCO_MAX_DETS = (1, 10, 100)
+
+
+def _np_coco_map(images, num_classes, thresholds=_COCO_THRESHOLDS, max_dets=_COCO_MAX_DETS, area_ranges=_COCO_AREAS):
+    """The pycocotools algorithm, loop-wise, over ``(det_boxes, det_scores, det_labels, gt_boxes, gt_labels,
+    gt_crowd)`` per image (a replica of the JAX package's test oracle, ``tests/detection/test_mean_ap.py``).
+    The recall and its 101-point grid are float32, as the evaluated implementations take them (the grid
+    ``k * float32(0.01)`` of ``jnp.linspace``), so a recall exactly on a grid point selects the same rank; the
+    rest is float64. Each (image, class) cell's detections, ground truths and overlaps are gathered once for
+    every area range, and a cell without ground truths matches nothing (its out-of-range detections are
+    ignored), as the loop would find."""
+    n_area, n_thr, k_max = len(area_ranges), len(thresholds), max(max_dets)
+    aps = np.full((n_area, n_thr, num_classes), np.nan)
+    recs = {k: np.full((n_area, n_thr, num_classes), np.nan) for k in max_dets}
+    grid = np.arange(101, dtype=np.float32) * np.float32(0.01)
+    cells = [[] for _ in range(num_classes)]  # per class: (scores, det areas, gt areas, crowd, overlaps)
+    for det_boxes, det_scores, det_labels, gt_boxes, gt_labels, gt_crowd in images:
+        for ci in sorted(set(det_labels.tolist()) | set(gt_labels.tolist())):
+            d_idx = np.where(det_labels == ci)[0]
+            d_idx = d_idx[np.argsort(-det_scores[d_idx], kind="stable")][:k_max]
+            g_idx = np.where(gt_labels == ci)[0]
+            g_crowd = gt_crowd[g_idx].astype(bool)
+            ious = (_np_iou(det_boxes[d_idx], gt_boxes[g_idx], g_crowd)
+                    if len(d_idx) and len(g_idx) else np.zeros((len(d_idx), len(g_idx))))
+            cells[ci].append((det_scores[d_idx], _np_area(det_boxes[d_idx]), _np_area(gt_boxes[g_idx]), g_crowd, ious))
+    for ai, (_, lo, hi) in enumerate(area_ranges):
+        for ci in range(num_classes):
+            n_gt = 0
+            per_img = []
+            for scores, d_area, g_area, g_crowd, ious in cells[ci]:
+                g_ig = g_crowd | (g_area < lo) | (g_area > hi)
+                g_order = np.argsort(g_ig, kind="stable")  # pycocotools sorts gts unignored-first
+                g_ig, crowd, ov = g_ig[g_order], g_crowd[g_order], ious[:, g_order]
+                n_gt += int((~g_ig).sum())
+                d_out = (d_area < lo) | (d_area > hi)
+                tp = np.zeros((n_thr, len(scores)), bool)
+                ig = np.repeat(d_out[None], n_thr, 0)  # unmatched and out of range: ignored
+                for ti, thr in enumerate(thresholds if len(g_ig) else ()):
+                    used = np.zeros(len(g_ig), bool)
+                    for r in range(len(scores)):
+                        best, best_iou = -1, float(np.float32(thr))
+                        for c in range(len(g_ig)):
+                            if used[c] and not crowd[c]:
+                                continue
+                            if best >= 0 and not g_ig[best] and g_ig[c]:
+                                break  # an unignored match found and the rest are ignored
+                            if ov[r, c] < best_iou:
+                                continue
+                            best, best_iou = c, ov[r, c]
+                        if best >= 0:
+                            used[best] = True
+                            ig[ti, r] = g_ig[best]
+                            tp[ti, r] = not g_ig[best]
+                per_img.append((scores, tp, ig))
+            if n_gt == 0:
+                continue
+            for k in max_dets:
+                for ti in range(n_thr):
+                    recs[k][ai, ti, ci] = sum(tp[ti, :k].sum() for _, tp, _ in per_img) / n_gt
+            scores = np.concatenate([s for s, _, _ in per_img])
+            order = np.argsort(-scores, kind="stable")
+            for ti in range(n_thr):
+                tp_flat = np.concatenate([tp[ti] for _, tp, _ in per_img])[order]
+                ig_flat = np.concatenate([ig[ti] for _, _, ig in per_img])[order]
+                keep = ~ig_flat
+                tps = np.cumsum(tp_flat[keep])
+                fps = np.cumsum(~tp_flat[keep])
+                recall = tps.astype(np.float32) / np.float32(n_gt)
+                precision = tps / np.maximum(tps + fps, 1e-30)
+                if len(precision):
+                    precision = np.maximum.accumulate(precision[::-1])[::-1]
+                    inds = np.searchsorted(recall, grid, side="left")
+                    q = np.where(inds < len(precision), precision[np.minimum(inds, len(precision) - 1)], 0.0)
+                else:
+                    q = np.zeros(grid.shape)
+                aps[ai, ti, ci] = q.mean()
+    out = {"map": np.nanmean(aps[0]), "map_50": np.nanmean(aps[0, thresholds.index(0.5)]),
+           "map_75": np.nanmean(aps[0, thresholds.index(0.75)]), "map_per_class": np.nanmean(aps[0], axis=0),
+           f"mar_{k_max}_per_class": np.nanmean(recs[k_max][0], axis=0)}
+    for k in max_dets:
+        out[f"mar_{k}"] = np.nanmean(recs[k][0])
+    for ai, (name, _, _) in enumerate(area_ranges):
+        if name != "all":
+            out[f"map_{name}"] = np.nanmean(aps[ai])
+            out[f"mar_{name}"] = np.nanmean(recs[k_max][ai])
+    return out
+
+
+def _h_close(label, got, want, rtol, atol=0.0):
+    """Raise unless ``got`` is within ``atol + rtol |want|`` of ``want`` (NaN where NaN); return the largest
+    difference as a share of that tolerance."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.allclose(got, want, rtol=rtol, atol=atol, equal_nan=True):
+        raise AssertionError(f"{label}: {got} vs {want} (rtol {rtol}, atol {atol})")
+    both = np.isfinite(got) & np.isfinite(want)
+    share = np.abs(got[both] - want[both]) / (np.broadcast_to(atol, got.shape)[both] + rtol * np.abs(want[both]))
+    return float(share.max()) if share.size else 0.0
+
+
+def check_path_h1(run):
+    import warnings
+
+    import torch
+
+    images = run["images"]
+    g_max = int(images["n_gt"].max())
+    warnings.simplefilter("ignore")
+    cpu = _h1_metric("cpu", g_max)
+    cpu_ms = 0.0
+    for preds, target in _h1_batches(images, torch.device("cpu"), 0, H1_IMAGES):
+        cpu.update(preds, target)
+    want, cpu_ms = _h_timed(torch.device("cpu"), cpu.compute)
+    worst = max(_h_close(f"path H1 epoch {k}", run["epoch"][k], v.numpy(), RTOL_H1) for k, v in want.items())
+    cpu_flags = _h1_flags(cpu)
+    for got, expect, name in zip(run["flags"], cpu_flags, ("matched", "matched to ignored", "taking part", "rank")):
+        _check(np.array_equal(got, expect.numpy()), f"path H1 match flags ({name}, {expect.numel():,} entries) on the"
+               f" card equal the CPU run's bit for bit")
+    print(f"  ok: path H1 epoch over {H1_IMAGES} images: every key equals the port's CPU run (rtol {RTOL_H1}; the"
+          f" largest difference {worst:.2f} of the tolerance); map {run['epoch']['map']:.6f}, map_50"
+          f" {run['epoch']['map_50']:.6f}, mar_100 {run['epoch']['mar_100']:.6f}; CPU compute {cpu_ms:.0f} ms")
+    t0 = time.perf_counter()
+    per_image = []
+    for i in range(H1_ORACLE_IMAGES):
+        n = int(images["n_gt"][i])
+        # float32 boxes: the replica's IoU is then the same float32 arithmetic as the evaluated code's, so a
+        # threshold comparison decides alike
+        per_image.append((images["det_boxes"][i], images["det_scores"][i], images["det_labels"][i],
+                          images["gt_boxes"][i, :n], images["gt_labels"][i, :n], images["gt_crowd"][i, :n]))
+    oracle = _np_coco_map(per_image, H1_CLASSES)
+    oracle_s = time.perf_counter() - t0
+    worst = max(_h_close(f"path H1 first {H1_ORACLE_IMAGES} images {k}", run["first"][k], v, RTOL_H1_ORACLE)
+                for k, v in oracle.items())
+    print(f"  ok: path H1 first {H1_ORACLE_IMAGES} images: every key equals the numpy pycocotools replica (rtol"
+          f" {RTOL_H1_ORACLE}; the largest difference {worst:.2f} of the tolerance; replica {oracle_s:.1f} s); map"
+          f" {run['first']['map']:.6f}")
+    _check(run["collectives"]["all_gather"] >= 1 and run["collectives"]["all_reduce"] == 0,
+           f"path H1 epoch compute gathers the per-image states ({run['collectives']})")
+    peak = run["peak_bytes"]
+    if peak is not None:
+        _check(peak < H1_MEMORY_BUDGET, f"path H1 epoch compute peak device memory {peak / 2**30:.2f} GiB <"
+               f" {H1_MEMORY_BUDGET / 2**30:.0f} GiB (the dense (A, T, C, I, G) form would hold 4.1 GB a temporary)")
+    epoch_ms = run["epoch_ms"]
+    timing = {"update_ms": statistics.median(run["update_ms"]), "epoch_ms": epoch_ms, "match_ms": run["match_ms"],
+              "match_share": run["match_ms"] / epoch_ms[1], "peak_bytes": peak, "cpu_epoch_ms": cpu_ms,
+              "oracle_s": oracle_s}
+    print(f"[11] path H1: {len(run['update_ms'])} updates of {H1_BATCH} images: median {timing['update_ms']:.3f} ms"
+          f" (first {run['update_ms'][0]:.1f} ms); epoch compute {epoch_ms[0]:.1f} ms (again {epoch_ms[1]:.1f} ms), the"
+          f" matching {run['match_ms']:.1f} ms of it ({timing['match_share']:.0%}); peak"
+          f" {(peak or 0) / 2**20:.0f} MiB")
+    for key in ("profile", "update_profile"):
+        prof = run.get(key)
+        if prof is not None:
+            timing[key] = {"device_ms": prof["device_ms"], "share": prof["share"]}
+            print(f"    path H1 {'epoch compute' if key == 'profile' else 'update'}, profiled: {prof['device_ms']:.3f}"
+                  f" ms device time, {prof['share']:.0%} of its wall time")
+            for op in prof["top"]:
+                print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
+    return timing
+
+
+def _np_db(x, y, zero_mean):
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    if zero_mean:
+        x, y = x - x.mean(-1, keepdims=True), y - y.mean(-1, keepdims=True)
+    return x, y
+
+
+def _np_snr(p, t, zero_mean=False):
+    p, t = _np_db(p, t, zero_mean)
+    return 10 * np.log10(np.maximum((t ** 2).sum(-1), 1e-8) / np.maximum(((p - t) ** 2).sum(-1), 1e-8))
+
+
+def _np_si_sdr(p, t, zero_mean=False):
+    p, t = _np_db(p, t, zero_mean)
+    alpha = (p * t).sum(-1, keepdims=True) / np.maximum((t ** 2).sum(-1, keepdims=True), 1e-8)
+    s = alpha * t
+    return 10 * np.log10(np.maximum((s ** 2).sum(-1), 1e-8) / np.maximum(((p - s) ** 2).sum(-1), 1e-8))
+
+
+def _np_pit(p, t):
+    """(best mean SI-SNR, best permutation, margin to the second best) per example, float64."""
+    import itertools
+
+    s = p.shape[1]
+    mat = np.stack([np.stack([_np_si_sdr(p[:, i], t[:, j], True) for j in range(s)], 1) for i in range(s)], 1)
+    perms = np.array(list(itertools.permutations(range(s))))
+    scores = mat[:, perms, np.arange(s)].mean(-1)
+    ranked = np.sort(scores, 1)
+    return scores.max(1), perms[scores.argmax(1)], ranked[:, -1] - ranked[:, -2]
+
+
+def check_path_h2(runs):
+    import torch
+
+    timings = {}
+    for part, run in runs.items():
+        cpu = _h2_collection("cpu") if part == "H2a" else _h2_pit("cpu")
+        sums, n_ex, n_mix, worst_cpu, worst_oracle, decided = {}, 0, 0, 0.0, 0.0, 0
+        for step, (p, t) in enumerate(run["host"]):
+            value = cpu(torch.from_numpy(p), torch.from_numpy(t))
+            value = {k: v.item() for k, v in value.items()} if isinstance(value, dict) else {"PIT": value.item()}
+            best, perm, margin = _np_pit(p, t)
+            oracle = {"PIT": best}
+            if part == "H2a":
+                oracle.update({"SNR": _np_snr(p, t), "SI_SDR": _np_si_sdr(p, t), "SI_SNR": _np_si_sdr(p, t, True)})
+            for k, want in oracle.items():
+                sums[k] = sums.get(k, 0.0) + want.sum()
+                worst_cpu = max(worst_cpu, _h_close(f"path {part} step {step} {k} vs CPU", run["values"][step][k],
+                                                    value[k], RTOL_DB, ATOL_DB))
+                worst_oracle = max(worst_oracle, _h_close(f"path {part} step {step} {k} vs oracle",
+                                                          run["values"][step][k], want.mean(), RTOL_DB, ATOL_DB))
+            clear = margin > PIT_MARGIN_DB
+            if not np.array_equal(run["perms"][step][clear], perm[clear]):
+                raise AssertionError(f"path {part} step {step}: PIT's permutations differ from the oracle's")
+            decided += int(clear.sum())
+            n_mix += p.shape[0]
+            n_ex += p.shape[0] * p.shape[1]
+        epoch_cpu = cpu.compute()
+        epoch_cpu = ({k: v.item() for k, v in epoch_cpu.items()} if isinstance(epoch_cpu, dict)
+                     else {"PIT": epoch_cpu.item()})
+        for k, total in sums.items():
+            n = n_mix if k == "PIT" else n_ex
+            _h_close(f"path {part} epoch {k} vs CPU", run["epoch"][k], epoch_cpu[k], RTOL_DB, ATOL_DB)
+            worst_oracle = max(worst_oracle, _h_close(f"path {part} epoch {k} vs oracle", run["epoch"][k], total / n,
+                                                      RTOL_DB, ATOL_DB))
+        print(f"  ok: path {part}: {len(run['host'])} steps, {n_mix} mixtures: every step and epoch value equals the"
+              f" CPU run and the float64 oracle (rtol {RTOL_DB}, atol {ATOL_DB} dB; the largest differences"
+              f" {worst_cpu:.2f} and {worst_oracle:.2f} of the tolerance); PIT's permutation equals the oracle's for"
+              f" all {decided} of {n_mix} mixtures whose best two differ by more than {PIT_MARGIN_DB} dB; epoch"
+              f" {run['epoch']}")
+        timings[part] = {"ms_per_step": statistics.median(run["ms"]), "first_step_ms": run["ms"][0]}
+        prof = run.get("profile")
+        print(f"[11] path {part}: median {timings[part]['ms_per_step']:.3f} ms/step (first {run['ms'][0]:.1f} ms)"
+              + (f"; profiled step {prof['device_ms']:.3f} ms device, {prof['share']:.0%} of the step" if prof else ""))
+        if prof:
+            timings[part].update(device_ms=prof["device_ms"], share=prof["share"])
+    return timings
+
+
+def _np_closed_forms(cont):
+    """The nine extrinsic and four nominal scores, float64 numpy from a contingency (sklearn's / scipy's formulas),
+    AMI without its EMI (returned apart)."""
+    c = cont.astype(np.float64)
+    n = c.sum()
+    a, b = c.sum(1), c.sum(0)
+    comb = lambda x: x * (x - 1) / 2  # noqa: E731
+    nij2, a2, b2, n2 = comb(c).sum(), comb(a).sum(), comb(b).sum(), comb(n)
+    expected = a2 * b2 / n2
+    nz = c > 0
+    mi = (c[nz] / n * np.log(n * c[nz] / np.outer(a, b)[nz])).sum()
+
+    def entropy(v):
+        p = v[v > 0] / v.sum()
+        return -(p * np.log(p)).sum()
+
+    h_pred, h_true = entropy(a), entropy(b)
+    hom, com = mi / h_true, mi / h_pred
+    e = np.outer(a, b) / n
+    chi2 = ((c - e) ** 2 / np.where(e > 0, e, 1))[e > 0].sum()
+    r, k = (a > 0).sum(), (b > 0).sum()
+    rows = c[a > 0] / a[a > 0, None]
+    h_rows = -np.where(rows > 0, rows * np.log(np.where(rows > 0, rows, 1)), 0).sum(1)
+    h_cond = (a[a > 0] / n * h_rows).sum()
+    return {
+        "RandScore": (n2 + 2 * nij2 - a2 - b2) / n2,
+        "AdjustedRandScore": (nij2 - expected) / ((a2 + b2) / 2 - expected),
+        "MutualInfoScore": mi,
+        "NormalizedMutualInfoScore": mi / ((h_pred + h_true) / 2),
+        "HomogeneityScore": hom,
+        "CompletenessScore": com,
+        "VMeasureScore": 2 * hom * com / (hom + com),
+        "FowlkesMallowsScore": nij2 / np.sqrt(a2 * b2),
+        "CramersV": np.sqrt(chi2 / (n * (min(r, k) - 1))),
+        "PearsonsContingencyCoefficient": np.sqrt(chi2 / (chi2 + n)),
+        "TschuprowsT": np.sqrt(chi2 / (n * np.sqrt((r - 1) * (k - 1)))),
+        "TheilsU": (h_true - h_cond) / h_true,
+    }, (mi, h_pred, h_true)
+
+
+def _np_emi(cont):
+    """sklearn's expected mutual information, float64 numpy with ``scipy.special.gammaln``: for each count k, every
+    cell whose feasible range holds k at once."""
+    from scipy.special import gammaln
+
+    c = cont.astype(np.float64)
+    n = c.sum()
+    a, b = c.sum(1)[:, None], c.sum(0)[None, :]
+    a, b = a[a[:, 0] > 0], b[:, b[0] > 0]
+    lo, hi = np.maximum(1, a + b - n), np.minimum(a, b)
+    base = gammaln(a + 1) + gammaln(b + 1) + gammaln(n - a + 1) + gammaln(n - b + 1) - gammaln(n + 1)
+    total = 0.0
+    for k in range(1, int(hi.max()) + 1):
+        ok = (lo <= k) & (k <= hi)
+        if not ok.any():
+            continue
+        aa, bb = np.broadcast_to(a, ok.shape)[ok], np.broadcast_to(b, ok.shape)[ok]
+        log_p = base[ok] - gammaln(k + 1) - gammaln(aa - k + 1) - gammaln(bb - k + 1) - gammaln(n - aa - bb + k + 1)
+        total += (k / n * (np.log(n * k) - np.log(aa * bb)) * np.exp(log_p)).sum()
+    return total
+
+
+def _np_ami(cont):
+    forms, (mi, h_pred, h_true) = _np_closed_forms(cont)
+    emi = _np_emi(cont)
+    return (mi - emi) / ((h_pred + h_true) / 2 - emi), emi
+
+
+def check_path_h3(run):
+    import torch
+
+    from metrics_tpu_torch.functional import clustering as clust
+
+    preds, target = _h3_labels()
+    names = run["names"]
+    oracle = np.bincount(preds * H3_K + target, minlength=H3_K * H3_K).reshape(H3_K, H3_K)
+    cpu = _h3_collection("cpu")
+    for lo in range(0, H3_N, H3_BATCH):
+        cpu.update(torch.from_numpy(preds[lo:lo + H3_BATCH]), torch.from_numpy(target[lo:lo + H3_BATCH]))
+    for name, counts in run["contingency"].items():
+        if not (np.array_equal(counts, oracle) and np.array_equal(counts, cpu[name].contingency.numpy())):
+            raise AssertionError(f"path H3 {name}: the card's contingency differs from the CPU run or the oracle")
+    print(f"  ok: path H3 contingency ({H3_K} x {H3_K} int64, {H3_N:,} labels) of all {len(names)} members equals the"
+          f" CPU run and the numpy bincount oracle bit for bit")
+    forms, _ = _np_closed_forms(oracle)
+    worst = 0.0
+    for k, want in forms.items():
+        worst = max(worst, _h_close(f"path H3 epoch {k}", run["epoch"][k], want, RTOL_H3))
+    # per step: the first and the last step's batch values against the float64 forms of that batch's counts,
+    # AMI with its EMI
+    for step in (0, len(run["step_values"]) - 1):
+        lo = step * H3_BATCH
+        batch = np.bincount(preds[lo:lo + H3_BATCH] * H3_K + target[lo:lo + H3_BATCH],
+                            minlength=H3_K * H3_K).reshape(H3_K, H3_K)
+        step_forms, _ = _np_closed_forms(batch)
+        step_forms["AdjustedMutualInfoScore"] = _np_ami(batch)[0]
+        for i, k in enumerate(names):
+            worst = max(worst, _h_close(f"path H3 step {step} {k}", run["step_values"][step][i], step_forms[k],
+                                        RTOL_H3))
+    cont = torch.from_numpy(oracle)
+    cpu_emi, cpu_ms = _h_timed(torch.device("cpu"), lambda: clust._expected_mutual_info(cont, H3_N).item())
+    _h_close("path H3 epoch EMI vs the CPU run", run["emi"], cpu_emi, RTOL_H3_EMI)
+    mi, h_pred, h_true = _np_closed_forms(oracle)[1]
+    cpu_ami = (mi - cpu_emi) / ((h_pred + h_true) / 2 - cpu_emi)  # AMI's closed form around the CPU run's EMI
+    _h_close("path H3 epoch AMI vs the CPU run", run["epoch"]["AdjustedMutualInfoScore"], cpu_ami, RTOL_H3)
+    t0 = time.perf_counter()
+    first = np.bincount(preds[:H3_ORACLE_N] * H3_K + target[:H3_ORACLE_N], minlength=H3_K * H3_K).reshape(H3_K, H3_K)
+    first_ami, first_emi = _np_ami(first)
+    oracle_s = time.perf_counter() - t0
+    _h_close(f"path H3 AMI of the first {H3_ORACLE_N} labels vs the gammaln oracle", run["first_ami"], first_ami,
+             RTOL_H3)
+    print(f"  ok: path H3 closed forms at the epoch and at steps 0 and {len(run['step_values']) - 1} equal numpy"
+          f" float64 over the same counts (rtol {RTOL_H3}; the largest difference {worst:.2f} of the tolerance); epoch"
+          f" AMI {run['epoch']['AdjustedMutualInfoScore']:.7f} equals AMI over the port's CPU float64 EMI"
+          f" ({cpu_ms:.0f} ms) and the card's EMI {run['emi']:.10f} the CPU's (rtol {RTOL_H3_EMI}); the AMI of the"
+          f" first {H3_ORACLE_N} labels equals the numpy gammaln EMI oracle ({first_ami:.7f}; the oracle took"
+          f" {oracle_s:.1f} s)")
+    steps = len(run["ms"])
+    _check(run["groups"] == len(names) and run["updates"] == [len(names)] * steps
+           and run["reduces"] == [len(names)] * steps,
+           f"path H3: no compute group (as in the JAX package): {len(names)} updates and {len(names)} all_reduce calls"
+           f" (one {H3_K * H3_K * 8 / 1e6:.0f} MB int64 state each) every step")
+    timing = {"ms_per_step": statistics.median(run["ms"]), "first_step_ms": run["ms"][0], "epoch_ms": run["epoch_ms"],
+              "emi_ms": run["emi_ms"], "emi_peak_bytes": run["emi_peak"], "cpu_ami_ms": cpu_ms,
+              "oracle_emi_s": oracle_s}
+    prof = run.get("profile")
+    print(f"[11] path H3: {steps} steps of {H3_BATCH}: median {timing['ms_per_step']:.3f} ms/step (first"
+          f" {run['ms'][0]:.1f} ms); epoch compute {run['epoch_ms'][0]:.1f} ms (again {run['epoch_ms'][1]:.1f} ms); EMI"
+          f" alone {run['emi_ms']:.1f} ms, peak {(run['emi_peak'] or 0) / 2**20:.0f} MiB"
+          + (f"; profiled step {prof['device_ms']:.3f} ms device, {prof['share']:.0%} of the step" if prof else ""))
+    if prof:
+        timing.update(device_ms=prof["device_ms"], share=prof["share"])
+        for op in prof["top"]:
+            print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
+    return timing
+
+
+def _np_intrinsic(data, labels):
+    """(Calinski-Harabasz, Davies-Bouldin) in float64 numpy, sklearn's formulas."""
+    x = data.astype(np.float64)
+    ks = np.unique(labels)
+    counts = np.bincount(labels, minlength=H4_K)[ks].astype(np.float64)
+    sums = np.zeros((H4_K, x.shape[1]))
+    np.add.at(sums, labels, x)
+    centroids = sums[ks] / counts[:, None]
+    mean = x.mean(0)
+    between = (counts * ((centroids - mean) ** 2).sum(1)).sum()
+    resid = x - sums[labels] / np.bincount(labels, minlength=H4_K)[labels, None]
+    within = (resid ** 2).sum()
+    n, k = x.shape[0], ks.size
+    ch = between * (n - k) / (within * (k - 1))
+    dist = np.sqrt((resid ** 2).sum(1))
+    s = np.bincount(labels, weights=dist, minlength=H4_K)[ks] / counts
+    sq = (centroids ** 2).sum(1)
+    m = np.sqrt(np.maximum(sq[:, None] - 2 * centroids @ centroids.T + sq[None, :], 0))
+    np.fill_diagonal(m, np.inf)
+    db = ((s[:, None] + s[None, :]) / m).max(1).mean()
+    return ch, db
+
+
+def check_path_h4(run):
+    import torch
+
+    data, labels = run["host"]
+    cpu = _h4_collection("cpu")
+    cpu_ms = []
+    for lo in range(0, H4_N, H4_BATCH):
+        _, ms = _h_timed(torch.device("cpu"), lambda: cpu.update(torch.from_numpy(data[lo:lo + H4_BATCH]),
+                                                                 torch.from_numpy(labels[lo:lo + H4_BATCH])))
+        cpu_ms.append(ms)
+    want = {k: v.item() for k, v in cpu.compute().items()}
+    _check(np.allclose(run["moments"], cpu["CH"].moments.numpy(), rtol=RTOL_H4, atol=1e-4),
+           f"path H4 CH moment block ({H4_K} x {2 + H4_DIM}) equals the CPU run (rtol {RTOL_H4}, atol 1e-4)")
+    ch, db = _np_intrinsic(data, labels)
+    worst = 0.0
+    for k, oracle in (("CH", ch), ("DB", db), ("DB_capacity", db)):
+        worst = max(worst, _h_close(f"path H4 {k} vs CPU", run["epoch"][k], want[k], RTOL_H4))
+        _h_close(f"path H4 {k} vs float64 oracle", run["epoch"][k], oracle, RTOL_H4_ORACLE)
+    _check(run["epoch"]["DB"] == run["epoch"]["DB_capacity"], "path H4 DB: list and capacity modes give the same value")
+    _check(run["tf32_equal"] and run["tf32_flags_kept"],
+           "path H4 CH moments and DB give the same bits with TF32 allowed and not, and leave the caller's flags alone")
+    print(f"  ok: path H4 CH {run['epoch']['CH']:.4f} and DB {run['epoch']['DB']:.6f} equal the CPU run (rtol"
+          f" {RTOL_H4}; the largest difference {worst:.2f} of the tolerance) and sklearn's formulas in float64"
+          f" ({ch:.4f}, {db:.6f}; rtol {RTOL_H4_ORACLE})")
+    _check(run["collectives"]["all_gather"] >= 1, f"path H4 epoch compute gathers DB's samples and CH's moment block"
+           f" ({run['collectives']})")
+    timing = {"ms_per_step": statistics.median(run["ms"]), "first_step_ms": run["ms"][0], "epoch_ms": run["epoch_ms"],
+              "peak_bytes": run["peak_bytes"], "cpu_ms_per_step": statistics.median(cpu_ms)}
+    prof = run.get("profile")
+    print(f"[11] path H4: {len(run['ms'])} steps of {H4_BATCH} x {H4_DIM}: median {timing['ms_per_step']:.3f} ms/step"
+          f" (first {run['ms'][0]:.1f} ms); epoch compute {run['epoch_ms']:.1f} ms (gathers"
+          f" {H4_N * H4_DIM * 4 / 1e6:.0f} MB twice), peak {(run['peak_bytes'] or 0) / 2**20:.0f} MiB"
+          + (f"; profiled step {prof['device_ms']:.3f} ms device, {prof['share']:.0%} of the step" if prof else ""))
+    if prof:
+        timing.update(device_ms=prof["device_ms"], share=prof["share"])
+    return timing
+
+
+def _np_pairwise(name, x, y):
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    if name == "pairwise_cosine_similarity":
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)) @ (y / np.linalg.norm(y, axis=1, keepdims=True)).T
+    if name == "pairwise_euclidean_distance":
+        return np.sqrt(np.maximum((x ** 2).sum(1)[:, None] - 2 * x @ y.T + (y ** 2).sum(1)[None, :], 0))
+    if name == "pairwise_manhattan_distance":
+        return np.concatenate([np.abs(x[i:i + 4, None] - y[None]).sum(-1) for i in range(0, x.shape[0], 4)])
+    return x @ y.T
+
+
+def _h5_variants(label, results, key, base, atol):
+    """Every (reduction, zero_diagonal) variant of one function against the float64 oracle's ``base`` rows."""
+    worst = 0.0
+    for reduction in (None, "mean", "sum"):
+        for zero_diagonal in (False, True):
+            want = base.copy()
+            if zero_diagonal:
+                np.fill_diagonal(want, 0.0)  # the first H5_ROWS diagonal entries: rows < min(N, M)
+            if reduction is None:
+                tol = atol
+            else:
+                mass = np.abs(want).sum(-1)
+                tol = RTOL_H5 * (mass / want.shape[1] if reduction == "mean" else mass)
+                want = want.mean(-1) if reduction == "mean" else want.sum(-1)
+            worst = max(worst, _h_close(f"{label} {reduction} zero_diagonal={zero_diagonal}",
+                                        results[(*key, reduction, zero_diagonal)], want, RTOL_H5, tol))
+    return worst
+
+
+def check_path_h5(run):
+    import torch
+
+    import metrics_tpu_torch.functional as ptf
+
+    x, y = run["x"], run["y"]
+    rows = x[:H5_ROWS]
+    worst, timing = 0.0, {}
+    for name in _H5_PAIRWISE:
+        cpu = getattr(ptf, name)(torch.from_numpy(rows), torch.from_numpy(y)).numpy()
+        worst = max(worst, _h_close(f"path H5 {name} vs CPU", run["results"][(name, None, False)], cpu, RTOL_H5,
+                                    _H5_ATOL[name]))
+        worst = max(worst, _h5_variants(f"path H5 {name}", run["results"], (name,), _np_pairwise(name, rows, y),
+                                        _H5_ATOL[name]))
+        timing[name] = statistics.median(run["ms"][(name, r, z)] for r in (None, "mean", "sum") for z in (False, True))
+    x64 = x.astype(np.float64)
+    for similarity in ("cosine", "dot"):
+        xs = x64 / np.linalg.norm(x64, axis=1, keepdims=True) if similarity == "cosine" else x64
+        cpu = ptf.embedding_similarity(torch.from_numpy(x), similarity, "none", True)[:H5_ROWS].numpy()
+        label = f"path H5 embedding_similarity {similarity}"
+        worst = max(worst, _h_close(f"{label} vs CPU", run["results"][("embedding_similarity", similarity, None, True)],
+                                    cpu, RTOL_H5, _H5_ATOL[similarity]))
+        worst = max(worst, _h5_variants(label, run["results"], ("embedding_similarity", similarity),
+                                        xs[:H5_ROWS] @ xs.T, _H5_ATOL[similarity]))
+    timing["embedding_similarity"] = statistics.median(v for k, v in run["ms"].items()
+                                                       if k[0] == "embedding_similarity")
+    for name, (equal, kept) in run["tf32"].items():
+        _check(equal and kept, f"path H5 {name}: the same bits with TF32 allowed and not; the caller's flags kept")
+    img = run["images"]
+    cpu = [g.numpy() for g in ptf.image_gradients(torch.from_numpy(img))]
+    img64 = img.astype(np.float64)
+    oracle = [np.pad(img64[..., 1:, :] - img64[..., :-1, :], ((0, 0), (0, 0), (0, 1), (0, 0))).astype(np.float32),
+              np.pad(img64[..., :, 1:] - img64[..., :, :-1], ((0, 0), (0, 0), (0, 0), (0, 1))).astype(np.float32)]
+    _check(all(np.array_equal(g, c) and np.array_equal(g, o) for g, c, o in zip(run["gradients"], cpu, oracle)),
+           f"path H5 image_gradients of {E4_SHAPE} equal the CPU run and the float64 oracle rounded to float32 bit"
+           f" for bit")
+    print(f"  ok: path H5 pairwise matrices ({H5_X} x {H5_Y} x {H5_DIM}) and embedding_similarity ({H5_X} x {H5_X}),"
+          f" every reduction and zero_diagonal, equal the CPU run and the float64 oracle on {H5_ROWS} rows against"
+          f" every column (rtol {RTOL_H5}; the largest difference {worst:.2f} of the tolerance)")
+    timing["image_gradients"] = run["gradient_ms"]
+    print("[11] path H5 ms a call: " + "; ".join(f"{k} {v:.2f}" for k, v in timing.items()))
+    return timing
+
+
+def check_path_h(result):
+    timings = {}
+    for part, check in (("H1", check_path_h1), ("H2", check_path_h2), ("H3", check_path_h3), ("H4", check_path_h4),
+                        ("H5", check_path_h5)):
+        t0 = time.perf_counter()
+        timings[part] = check(result[part])
+        print(f"    path {part} checks on the host: {time.perf_counter() - t0:.1f} s")
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -2316,6 +3327,13 @@ def main() -> int:
         **{f"path_{k.lower()}_ms_per_step": paths["e"][k]["ms_per_step"] for k in ("E1", "E2", "E4")},
         "path_f_ms_per_step": paths["f"]["ms_per_step"],
         "path_g_ms_per_step": {k: v["ms_per_step"] for k, v in paths["g"].items()},
+        "path_h_ms_per_step": {"H1_update": paths["h"]["H1"]["update_ms"],
+                               **{k: paths["h"]["H2"][k]["ms_per_step"] for k in ("H2a", "H2b")},
+                               **{k: paths["h"][k]["ms_per_step"] for k in ("H3", "H4")}},
+        "path_h_epoch_ms": {"H1": paths["h"]["H1"]["epoch_ms"][1], "H3": paths["h"]["H3"]["epoch_ms"][1],
+                            "H3_emi": paths["h"]["H3"]["emi_ms"], "H4": paths["h"]["H4"]["epoch_ms"]},
+        "path_h_peak_bytes": {"H1": paths["h"]["H1"]["peak_bytes"], "H3_emi": paths["h"]["H3"]["emi_peak_bytes"],
+                              "H4": paths["h"]["H4"]["peak_bytes"]},
     }
 
     print(json.dumps({"kernels": [kernel]}))

@@ -5,7 +5,8 @@ comparing against ``arange`` (out-of-range labels give an all-zero row, as
 ``jax.nn.one_hot`` does), and ties in ``select_topk`` go to the lowest index,
 as ``jax.lax.top_k`` breaks them.
 """
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -72,6 +73,24 @@ def device_constant(key: tuple, device: torch.device, make: Callable[[], Any], d
     if value is None:
         value = _DEVICE_CONSTANTS[full] = torch.tensor(np.asarray(make()), dtype=dtype).to(device)
     return value
+
+
+@contextmanager
+def full_fp32_matmul() -> Iterator[None]:
+    """Run the float32 products inside in full float32, then restore the caller's setting.
+
+    The JAX package pins ``precision="highest"`` on the products of its
+    pairwise, embedding and intrinsic-clustering functions. On the card a
+    float32 ``torch.matmul`` runs in TF32 when the caller's
+    ``torch.backends.cuda.matmul.allow_tf32`` is on (``float32_matmul_precision``
+    ``"high"``); inside this context it is ``"highest"``, so the result does not
+    depend on that flag."""
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(previous)
 
 
 def scatter_count(counts: Tensor, flat_index: Tensor, keep: Tensor) -> Tensor:
