@@ -156,7 +156,26 @@ Phases, in order; each raises on failure and none is caught:
    run and numpy float64, the same bits with TF32 allowed and not; ``image_gradients`` of E4's images equal
    bit for bit. Prints ms per step, epoch ms, a profiled step's device share and peak device memory. Path H
    runs no hand-written kernel: the JAX package computes these families in XLA, never Pallas.
-12. The ``kernels`` JSON line, then the device JSON as the last line.
+12. Path I, the text family, in the same group with ``device="cuda"`` (nothing caught), data from seeded numpy and
+   ``torch.Generator`` sources (nothing downloaded; the datasets give the sizes). I1, LM evaluation at Llama 3's
+   vocabulary: ``Perplexity(ignore_index=-100)`` with ``dist_sync_on_step`` over 30 steps of bf16 logits (4, 2,048,
+   128,256) made on the card, each target's logit raised (perplexity ~20), ~3% of the targets -100: 245,760 tokens,
+   about WikiText-103's test set. Every step and the epoch equal a float64 ``logsumexp`` oracle on the card (rtol
+   1e-5), step 0 the port's CPU run; one update and two ``all_reduce`` a step; the peak device memory of a step stays
+   under 2 GiB above the logits. I2, ASR evaluation at LibriSpeech test-clean's size (2,620 utterances, 52,576
+   reference words over a Zipf vocabulary, ~5% word errors): WER, CharErrorRate, MatchErrorRate, WordInfoLost,
+   WordInfoPreserved and EditDistance with ``dist_sync_on_step`` in batches of 64, and the same utterances as padded
+   ids through ``edit_distance_padded`` and ``WER.update_counts``: every distance equals a plain Python DP, the word
+   states its (distance, hits) DP, every value the CPU run. I3, MT evaluation at WMT14 En-De newstest2014's size
+   (3,003 sentences, one reference, punctuation, numbers and ``&quot;`` entities): SacreBLEU (13a), BLEU, chrF and
+   TER in batches of 64, synced at ``compute()``: BLEU's counts equal ``Counter`` n-grams, chrF's statistics
+   ``Counter`` character n-grams, the states the CPU run (TER's after its first 8 batches: the host shift search is
+   cut there and the cut is printed). I4: ROUGE-1/2/L over CNN/DailyMail test's 11,490 pairs (~56-word references;
+   every batch's LCS runs on the card), the LCS equal to a plain Python DP on 640 pairs and to the CPU run on all,
+   and SQuAD over v1.1 dev's 10,570 questions, both against a float64 oracle (rtol 1e-5) and the CPU run. Prints
+   ms per step, epoch ms, profiled steps of I1 and I2 and I1's peak memory. Path I runs no hand-written kernel: the
+   JAX package computes its DPs, BLEU counts and log-softmax in XLA, never Pallas.
+13. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -168,6 +187,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -532,6 +552,7 @@ def phase_paths():
         path_f = run_path_f(dev)
         path_g = run_path_g(dev, a_batches, b_batches)
         path_h = run_path_h(dev)
+        path_i = run_path_i(dev)
     finally:
         dist.destroy_process_group()
 
@@ -556,9 +577,10 @@ def phase_paths():
     f_timings = check_path_f(path_f)
     g_timings = check_path_g(path_g)
     h_timings = check_path_h(path_h)
+    i_timings = check_path_i(path_i)
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
-            "f": f_timings, "g": g_timings, "h": h_timings}
+            "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings}
 
 
 def _profile_step(collection, batch):
@@ -3284,6 +3306,732 @@ def check_path_h(result):
     return timings
 
 
+# ---- path I: the text family
+# I1: LM evaluation at Llama 3's published vocabulary; 30 steps of 4 x 2,048 tokens: 245,760 tokens, about
+# WikiText-103's test set (245,569 tokens)
+I1_STEPS, I1_SHAPE = 30, (4, 2_048, 128_256)
+I1_IGNORED = 0.03  # share of -100 targets
+I1_BOOST = (9.5, 1.5)  # the target's logit: N(9.5, 1.5^2) over N(0, 1) logits puts the perplexity near 20
+I1_CPU_STEPS = 1  # the CPU run repeats step 0; the float64 oracle holds every step
+# float32 sums of float32 token log-likelihoods (a float32 log_softmax of bf16 logits) against float64
+RTOL_I1 = 1e-5
+# I2: ASR evaluation at LibriSpeech test-clean's size: 2,620 utterances, 52,576 reference words, batches of 64
+I2_UTTERANCES, I2_WORDS, I2_BATCH, I2_VOCAB = 2_620, 52_576, 64, 20_000
+I2_SUB, I2_DEL, I2_INS = 0.03, 0.01, 0.01  # per reference word: ~5% word errors
+I2_CHAR_ORACLE = 256  # utterances whose character distances the plain Python DP holds (the rest: the CPU run)
+# I3: MT evaluation at WMT14 En-De newstest2014's size: 3,003 sentences, one reference, batches of 64
+I3_SENTENCES, I3_BATCH, I3_WORDS, I3_VOCAB = 3_003, 64, 27, 30_000
+# TER's host shift search is the one host cost path I cuts: its CPU run repeats the first 8 batches (512 sentences)
+# against the card's states after them; the card runs all 47
+I3_TER_CPU_BATCHES = 8
+# I4: CNN/DailyMail test's 11,490 summaries (references ~56 words) and SQuAD v1.1 dev's 10,570 questions
+I4_PAIRS, I4_BATCH, I4_REF_WORDS, I4_VOCAB = 11_490, 64, 56, 30_000
+I4_LCS_ORACLE = 640  # pairs whose LCS the plain Python DP holds (every pair: the CPU run)
+I4_QUESTIONS = 10_570
+# rates and means from equal integer states, or float32 sums of equal host floats, card against CPU
+RTOL_I = 1e-6
+# float32 sums (BLEU's clipped-count ratios, ROUGE / SQuAD per-item scores) against float64 over the same items
+RTOL_I_ORACLE = 1e-5
+
+
+def _zipf_words(rng, vocab, count, exponent=1.1):
+    """``count`` words drawn Zipf(``exponent``) over ``vocab`` distinct lowercase words."""
+    lengths = 2 + rng.geometric(0.3, vocab)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = list(dict.fromkeys("".join(rng.choice(letters, n)) for n in lengths))
+    p = 1.0 / np.arange(1, len(words) + 1) ** exponent
+    return np.asarray(words)[rng.choice(len(words), count, p=p / p.sum())]
+
+
+def _split_total(rng, n, total, shape=1.6):
+    """``n`` lengths of at least 1, gamma-spread, summing to ``total`` exactly."""
+    raw = rng.gamma(shape, 1.0, n)
+    lengths = 1 + np.floor(raw / raw.sum() * (total - n)).astype(np.int64)
+    lengths[rng.choice(n, total - lengths.sum(), replace=False)] += 1
+    return lengths
+
+
+def _i1_batch(gen, device):
+    """Seeded bf16 logits on the card with each target's logit raised, ~3% of the targets -100."""
+    import torch
+
+    b, t, v = I1_SHAPE
+    logits = torch.randn(I1_SHAPE, generator=gen, device=device, dtype=torch.bfloat16)
+    ids = torch.randint(0, v, (b, t), generator=gen, device=device)
+    boost = I1_BOOST[0] + I1_BOOST[1] * torch.randn((b, t, 1), generator=gen, device=device)
+    logits.scatter_(-1, ids[..., None], boost.to(torch.bfloat16))
+    ids = torch.where(torch.rand((b, t), generator=gen, device=device) < I1_IGNORED, -100, ids)
+    return logits, ids
+
+
+def _i1_oracle(logits, ids, rows=512):
+    """(float64 NLL sum, token count) of one batch, from ``logsumexp`` of float64 logits in row chunks."""
+    import torch
+
+    flat, idx = logits.reshape(-1, logits.shape[-1]), ids.reshape(-1)
+    keep = idx != -100
+    total = torch.zeros((), dtype=torch.float64, device=logits.device)
+    for lo in range(0, flat.shape[0], rows):
+        x = flat[lo:lo + rows].double()
+        nll = torch.logsumexp(x, -1) - x.gather(1, idx[lo:lo + rows].clamp_min(0)[:, None])[:, 0]
+        total += (nll * keep[lo:lo + rows]).sum()
+    return total.item(), int(keep.sum())
+
+
+def run_path_i1(device):
+    import torch
+
+    import metrics_tpu_torch as pt
+
+    gen = torch.Generator(device=device).manual_seed(91)
+    metric = pt.Perplexity(ignore_index=-100, dist_sync_on_step=True, device=device)
+    out = {"values": [], "ms": [], "peaks": [], "updates": [], "reduces": [], "oracle": []}
+    for step in range(I1_STEPS):
+        logits, ids = _i1_batch(gen, device)
+        with _CountUpdates() as up, _CountCollectives() as coll:
+            value, ms, peak = _h_peak(device, lambda: metric(logits, ids))
+        out["values"].append(value.item())
+        out["ms"].append(ms)
+        out["peaks"].append(peak)
+        out["updates"].append(up[0])
+        out["reduces"].append(coll["all_reduce"])
+        out["oracle"].append(_i1_oracle(logits, ids))
+        if step < I1_CPU_STEPS:
+            out.setdefault("host", []).append((logits.cpu(), ids.cpu()))
+        if step == I1_STEPS - 1 and device.type == "cuda":
+            fresh = pt.Perplexity(ignore_index=-100, dist_sync_on_step=True, device=device)
+            out["profile"] = _profile_call(lambda: fresh(logits, ids))
+        del logits, ids
+    epoch_ms = []
+    for _ in range(2):
+        metric._computed = None
+        with _CountCollectives() as collectives:
+            epoch, ms = _h_timed(device, metric.compute)
+        epoch_ms.append(ms)
+    out.update(epoch=epoch.item(), epoch_ms=epoch_ms, epoch_collectives=dict(collectives),
+               count=int(metric.count), logits_bytes=int(np.prod(I1_SHAPE)) * 2)
+    return out
+
+
+def _i2_corpus():
+    """(hypotheses, references): LibriSpeech test-clean's utterance and word counts over a Zipf vocabulary,
+    hypotheses the references with seeded word substitutions, deletions and insertions."""
+    rng = np.random.default_rng(92)
+    lengths = _split_total(rng, I2_UTTERANCES, I2_WORDS)
+    words = _zipf_words(rng, I2_VOCAB, I2_WORDS)
+    noise = _zipf_words(rng, I2_VOCAB, I2_WORDS)
+    refs, hyps, at = [], [], 0
+    for n in lengths:
+        ref = list(words[at:at + n])
+        hyp = []
+        for k, w in enumerate(ref):
+            r = rng.random()
+            if r >= I2_SUB + I2_DEL:
+                hyp.append(w)
+            elif r < I2_SUB:
+                hyp.append(noise[at + k])
+            if rng.random() < I2_INS:
+                hyp.append(noise[-1 - at - k])
+        refs.append(" ".join(ref))
+        hyps.append(" ".join(hyp))
+        at += n
+    return hyps, refs
+
+
+_I2_MEMBERS = ("WER", "CharErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved", "EditDistance")
+
+
+def _i2_collection(device, **kw):
+    import metrics_tpu_torch as pt
+
+    return pt.MetricCollection([getattr(pt, name)(device=device, **kw) for name in _I2_MEMBERS])
+
+
+def _i2_ids(hyps, refs):
+    """The batch's words as padded int64 ids of one vocabulary (0 pads), and the lengths."""
+    vocab = {}
+    split = [(h.split(), r.split()) for h, r in zip(hyps, refs)]
+    n = max(1, max(len(h) for h, _ in split))
+    m = max(1, max(len(r) for _, r in split))
+    pred, target = np.zeros((len(split), n), np.int64), np.zeros((len(split), m), np.int64)
+    for k, (h, r) in enumerate(split):
+        pred[k, :len(h)] = [vocab.setdefault(w, len(vocab) + 1) for w in h]
+        target[k, :len(r)] = [vocab.setdefault(w, len(vocab) + 1) for w in r]
+    return pred, target, np.array([len(h) for h, _ in split]), np.array([len(r) for _, r in split])
+
+
+def run_path_i2(device):
+    import torch
+
+    import metrics_tpu_torch as pt
+    import metrics_tpu_torch.functional as ptf
+
+    hyps, refs = _i2_corpus()
+    batches = [(hyps[lo:lo + I2_BATCH], refs[lo:lo + I2_BATCH]) for lo in range(0, I2_UTTERANCES, I2_BATCH)]
+    col = _i2_collection(device, dist_sync_on_step=True)
+    values, ms, updates, reduces = [], [], [], []
+    for batch in batches:
+        with _CountUpdates() as up, _CountCollectives() as coll:
+            value, step_ms = _h_timed(device, lambda: col(*batch))
+        values.append({k: v.item() for k, v in value.items()})
+        ms.append(step_ms)
+        updates.append(up[0])
+        reduces.append(coll["all_reduce"])
+    epoch, epoch_ms, collectives, _ = _epoch_timed(col, device)
+    # the same utterances as padded id tensors through the batched DP on the card, into WER.update_counts
+    wer_dev = pt.WER(device=device)
+    dists, dp_ms = [], []
+    for batch in batches:
+        pred, target, pl, tl = (torch.from_numpy(x).to(device) for x in _i2_ids(*batch))
+        d, call_ms = _h_timed(device, lambda: ptf.edit_distance_padded(pred, target, pl, tl))
+        wer_dev.update_counts(d, tl)
+        dists.append(d.cpu().numpy())
+        dp_ms.append(call_ms)
+    out = {"hyps": hyps, "refs": refs, "values": values, "ms": ms, "updates": updates, "reduces": reduces,
+           "epoch": {k: v.item() for k, v in epoch.items()}, "epoch_ms": epoch_ms, "epoch_collectives": collectives,
+           "states": _text_states(col), "dists": np.concatenate(dists), "dp_ms": dp_ms,
+           "update_counts": (int(wer_dev.errors), int(wer_dev.total)), "wer_counts": wer_dev.compute().item()}
+    if device.type == "cuda":
+        fresh = _i2_collection(device, dist_sync_on_step=True)
+        out["profile"] = _profile_call(lambda: fresh(*batches[1]), calls=3)
+        pred, target, pl, tl = (torch.from_numpy(x).to(device) for x in _i2_ids(*batches[1]))
+        out["dp_profile"] = _profile_call(lambda: ptf.edit_distance_padded(pred, target, pl, tl), calls=3)
+    return out
+
+
+def _text_states(metrics):
+    """Every state of every member, on the host."""
+    return {f"{name}.{s}": getattr(m, s).cpu().numpy() for name, m in metrics.items() for s in m._defaults}
+
+
+_I3_PUNCT = (",", ".", ",", ".", "?", "!", ":", ";")
+
+
+def _i3_sentence(rng, words, numbers):
+    """A detokenized newstest-style sentence: capitals, trailing punctuation, numbers, hyphens, quote entities."""
+    n = max(3, int(rng.gamma(3.0, I3_WORDS / 3.0)))
+    out = []
+    for k, w in enumerate(rng.choice(words, n)):
+        r = rng.random()
+        if r < 0.05:
+            w = numbers[int(rng.integers(0, len(numbers)))]
+        elif r < 0.08:
+            w = f"{w}-{rng.choice(words)}"
+        elif r < 0.11:
+            w = f"&quot;{w}&quot;"
+        if k == 0 or rng.random() < 0.08:
+            w = w[:1].upper() + w[1:]
+        if rng.random() < 0.07:
+            w += str(rng.choice(_I3_PUNCT))
+        out.append(w)
+    return " ".join(out) + "."
+
+
+def _i3_corpus():
+    rng = np.random.default_rng(93)
+    words = _zipf_words(rng, I3_VOCAB, 200_000)
+    numbers = ["3.5", "1,000", "2014", "-5", "20-30", "0.25", "100,000", "7"]
+    refs = [_i3_sentence(rng, words, numbers) for _ in range(I3_SENTENCES)]
+    hyps = []
+    for ref in refs:
+        toks = ref.split()
+        hyp = []
+        for w in toks:
+            r = rng.random()
+            if r < 0.15:
+                hyp.append(str(rng.choice(words)))
+            elif r >= 0.2:
+                hyp.append(w)
+            if rng.random() < 0.05:
+                hyp.append(str(rng.choice(words)))
+        if len(hyp) > 4 and rng.random() < 0.5:  # a reordered block, for TER's shifts
+            i = int(rng.integers(0, len(hyp) - 4))
+            hyp[i:i + 4] = hyp[i + 2:i + 4] + hyp[i:i + 2]
+        hyps.append(" ".join(hyp))
+    return hyps, refs
+
+
+def _i3_ter_batches():
+    return min(I3_TER_CPU_BATCHES, -(-I3_SENTENCES // I3_BATCH))
+
+
+def _i3_metrics(device):
+    import metrics_tpu_torch as pt
+
+    return {"SacreBLEUScore": pt.SacreBLEUScore(tokenize="13a", device=device), "BLEUScore": pt.BLEUScore(device=device),
+            "CHRFScore": pt.CHRFScore(device=device), "TranslationEditRate": pt.TranslationEditRate(device=device)}
+
+
+def _i3_feed(metrics, hyps, refs, times=None):
+    for name, metric in metrics.items():
+        if metric is None:
+            continue
+        target = refs if name == "CHRFScore" else [[r] for r in refs]
+        t0 = time.perf_counter()
+        metric.update(hyps, target)
+        if times is not None:
+            _sync(metric.device)
+            times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+
+
+def run_path_i3(device):
+    hyps, refs = _i3_corpus()
+    metrics = _i3_metrics(device)
+    times = {}
+    for step, lo in enumerate(range(0, I3_SENTENCES, I3_BATCH)):
+        _i3_feed(metrics, hyps[lo:lo + I3_BATCH], refs[lo:lo + I3_BATCH], times)
+        if step == _i3_ter_batches() - 1:
+            ter_first = _text_states({"TranslationEditRate": metrics["TranslationEditRate"]})
+    epoch, epoch_ms, collectives = {}, {}, {}
+    for name, metric in metrics.items():
+        with _CountCollectives() as coll:
+            value, epoch_ms[name] = _h_timed(device, metric.compute)
+        epoch[name], collectives[name] = value.item(), dict(coll)
+    return {"hyps": hyps, "refs": refs, "ms": times, "epoch": epoch, "epoch_ms": epoch_ms,
+            "epoch_collectives": collectives, "states": _text_states(metrics), "ter_first": ter_first}
+
+
+def _i4_rouge_corpus():
+    """(summaries, references): ~56-word references, summaries of copied reference spans and other words."""
+    rng = np.random.default_rng(94)
+    words = _zipf_words(rng, I4_VOCAB, 1_000_000)
+    refs, hyps, at = [], [], 0
+    for _ in range(I4_PAIRS):
+        n = max(8, int(rng.normal(I4_REF_WORDS, 12)))
+        ref = list(words[at % (len(words) - 200):][:n])
+        at += n
+        hyp, m = [], max(4, int(rng.normal(0.9 * n, 10)))
+        while len(hyp) < m:
+            if rng.random() < 0.6:
+                lo = int(rng.integers(0, n))
+                hyp += ref[lo:lo + int(rng.integers(2, 12))]
+            else:
+                hyp += list(rng.choice(words, int(rng.integers(1, 6))))
+        refs.append(" ".join(w.capitalize() if rng.random() < 0.1 else w for w in ref) + ".")
+        hyps.append(", ".join(hyp[:m]))
+    return hyps, refs
+
+
+_I4_ARTICLES = ("the", "a", "an")
+
+
+def _i4_squad_corpus():
+    """SQuAD v1.1 dev's size: answers of 1-5 words with articles and punctuation, 1-3 answers a question;
+    predictions exact, re-cased, re-punctuated, partial or wrong."""
+    rng = np.random.default_rng(95)
+    words = _zipf_words(rng, I4_VOCAB, 200_000)
+    preds, answers = [], []
+    for q in range(I4_QUESTIONS):
+        base = list(rng.choice(words, int(rng.integers(1, 6))))
+        if rng.random() < 0.4:
+            base.insert(0, str(rng.choice(_I4_ARTICLES)))
+        gold = [" ".join(base)]
+        for _ in range(int(rng.integers(0, 3))):
+            gold.append(" ".join(base[int(rng.integers(0, len(base))):]) + str(rng.choice(["", ".", ",", "'s"])))
+        r = rng.random()
+        if r < 0.45:
+            pred = gold[0]
+        elif r < 0.6:
+            pred = gold[0].upper() + "!"
+        elif r < 0.85:
+            pred = " ".join(base[:max(1, len(base) - 1)] + list(rng.choice(words, int(rng.integers(0, 3)))))
+        else:
+            pred = " ".join(rng.choice(words, int(rng.integers(1, 5))))
+        preds.append(pred)
+        answers.append(gold)
+    return preds, answers
+
+
+def run_path_i4(device):
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.functional import text_rouge
+
+    hyps, refs = _i4_rouge_corpus()
+    rouge = pt.ROUGEScore(("rouge1", "rouge2", "rougeL"), device=device)
+    ms, lcs, lcs_ms, cells = [], [], [], []
+    for lo in range(0, I4_PAIRS, I4_BATCH):
+        batch = (hyps[lo:lo + I4_BATCH], refs[lo:lo + I4_BATCH])
+        _, step_ms = _h_timed(device, lambda: rouge.update(*batch))
+        ms.append(step_ms)
+        pairs = [(text_rouge._rouge_tokens(p), text_rouge._rouge_tokens(t)) for p, t in zip(*batch)]
+        cells.append(sum(len(a) * len(b) for a, b in pairs))
+        got, call_ms = _h_timed(device, lambda: text_rouge._lcs_lens(pairs, device))
+        lcs += got
+        lcs_ms.append(call_ms)
+    with _CountCollectives() as coll:
+        epoch, epoch_ms = _h_timed(device, rouge.compute)
+    preds, answers = _i4_squad_corpus()
+    squad = pt.SQuAD(device=device)
+    squad_ms = []
+    for lo in range(0, I4_QUESTIONS, I4_BATCH):
+        _, step_ms = _h_timed(device, lambda: squad.update(preds[lo:lo + I4_BATCH], answers[lo:lo + I4_BATCH]))
+        squad_ms.append(step_ms)
+    squad_epoch, squad_epoch_ms = _h_timed(device, squad.compute)
+    return {"hyps": hyps, "refs": refs, "ms": ms, "lcs": lcs, "lcs_ms": lcs_ms, "min_cells": min(cells),
+            "epoch": {k: v.item() for k, v in epoch.items()}, "epoch_ms": epoch_ms, "epoch_collectives": dict(coll),
+            "states": _text_states({"ROUGEScore": rouge, "SQuAD": squad}), "squad_preds": preds,
+            "squad_answers": answers, "squad_ms": squad_ms, "squad_epoch": {k: v.item() for k, v in squad_epoch.items()},
+            "squad_epoch_ms": squad_epoch_ms}
+
+
+def run_path_i(device):
+    """Path I inside the caller's process group: I1-I4 on the card, timed, with what the checks need on the host."""
+    return {"I1": run_path_i1(device), "I2": run_path_i2(device), "I3": run_path_i3(device),
+            "I4": run_path_i4(device)}
+
+
+# ---- path I's oracles: plain Python DPs and Counter n-grams, no code shared with the port
+
+def _py_levenshtein(a, b):
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i] + [0] * len(b)
+        for j, y in enumerate(b, 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (x != y))
+        prev = cur
+    return prev[-1]
+
+
+def _py_distance_hits(a, b):
+    """(distance, hits): the fewest edits and, among minimum-edit alignments, the most matched tokens."""
+    prev = [(j, 0) for j in range(len(b) + 1)]
+    for i, x in enumerate(a, 1):
+        cur = [(i, 0)] + [None] * len(b)
+        for j, y in enumerate(b, 1):
+            d, h = prev[j - 1]
+            cands = ((d, -(h + 1)) if x == y else (d + 1, -h), (prev[j][0] + 1, -prev[j][1]),
+                     (cur[j - 1][0] + 1, -cur[j - 1][1]))
+            best = min(cands)
+            cur[j] = (best[0], -best[1])
+        prev = cur
+    return prev[-1]
+
+
+def _py_lcs(a, b):
+    prev = [0] * (len(b) + 1)
+    for x in a:
+        cur = [0] * (len(b) + 1)
+        for j, y in enumerate(b, 1):
+            cur[j] = prev[j - 1] + 1 if x == y else max(prev[j], cur[j - 1])
+        prev = cur
+    return prev[-1]
+
+
+def _i_close(label, got, want, rtol):
+    """Relative closeness; returns the difference as a share of the tolerance."""
+    if not np.isclose(got, want, rtol=rtol, atol=0.0):
+        raise AssertionError(f"{label}: {got} vs {want} (rtol {rtol})")
+    return abs(got - want) / (rtol * abs(want)) if want else 0.0
+
+
+def _i_states_equal(label, got, want):
+    """Integer states equal bit for bit, float states to RTOL_I."""
+    _check(sorted(got) == sorted(want), f"{label}: the card holds the CPU run's {len(want)} states")
+    for k, v in want.items():
+        if v.dtype.kind == "i":
+            if not np.array_equal(got[k], v):
+                raise AssertionError(f"{label} {k}: {got[k]} on the card, {v} on the CPU")
+        else:
+            np.testing.assert_allclose(got[k], v, rtol=RTOL_I, err_msg=f"{label} {k}")
+    print(f"  ok: {label}: integer states equal the CPU run's bit for bit, float32 states within rtol {RTOL_I}")
+
+
+def check_path_i1(run):
+    import torch
+
+    import metrics_tpu_torch as pt
+
+    worst = max(_i_close(f"path I1 step {s} perplexity vs float64", v, np.exp(t / n), RTOL_I1)
+                for s, (v, (t, n)) in enumerate(zip(run["values"], run["oracle"])))
+    total = sum(t for t, _ in run["oracle"])
+    count = sum(n for _, n in run["oracle"])
+    worst = max(worst, _i_close("path I1 epoch perplexity vs float64", run["epoch"], np.exp(total / count), RTOL_I1))
+    _check(run["count"] == count, f"path I1 token count {run['count']:,} equals the oracle's ({count:,} of"
+           f" {I1_STEPS * I1_SHAPE[0] * I1_SHAPE[1]:,}: the -100 targets drop out)")
+    cpu = pt.Perplexity(ignore_index=-100, device="cpu")
+    for step, (logits, ids) in enumerate(run["host"]):
+        value, cpu_ms = _h_timed(torch.device("cpu"), lambda: cpu(logits, ids))
+        _i_close(f"path I1 step {step} vs the CPU run", run["values"][step], value.item(), RTOL_I1)
+        _check(int(cpu.count) == run["oracle"][step][1], f"path I1 step {step} count equals the CPU run's")
+    print(f"  ok: path I1: every step's and the epoch's perplexity equals the float64 oracle (rtol {RTOL_I1}; the"
+          f" largest difference {worst:.2f} of the tolerance), step 0 the CPU run ({cpu_ms:.0f} ms on the host);"
+          f" epoch perplexity {run['epoch']:.4f} over {count:,} tokens")
+    _check(run["updates"] == [1] * I1_STEPS and run["reduces"] == [2] * I1_STEPS,
+           "path I1: one update and two all_reduce calls (float32 total, int64 count) a step")
+    peak = max(p for p in run["peaks"] if p is not None) if run["peaks"][0] is not None else None
+    if peak is not None:
+        _check(peak < 2 << 30, f"path I1 peak device memory of a step above its {run['logits_bytes'] / 1e9:.2f} GB of"
+               f" logits: {peak / 2**20:.0f} MiB (< 2 GiB of chunk temporaries)")
+    ms = statistics.median(run["ms"])
+    bound_ms = run["logits_bytes"] / HBM_BYTES_PER_S * 1e3
+    timing = {"ms_per_step": ms, "first_step_ms": run["ms"][0], "epoch_ms": run["epoch_ms"], "peak_bytes": peak,
+              "bound_ms": bound_ms}
+    line = (f"[12] path I1: {I1_STEPS} steps of {I1_SHAPE} bf16 logits: median {ms:.3f} ms/step (first"
+            f" {run['ms'][0]:.1f} ms; one read of the logits at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: {bound_ms:.3f} ms);"
+            f" epoch compute {run['epoch_ms'][1]:.2f} ms")
+    prof = run.get("profile")
+    if prof:
+        timing.update(device_ms=prof["device_ms"], share=prof["device_ms"] / ms, ops=prof["ops"],
+                      host_syncs=prof["host_syncs"])
+        line += (f"; profiled step {prof['device_ms']:.3f} ms device ({timing['share']:.0%}), {prof['ops']} operations,"
+                 f" {prof['host_syncs']} synchronizing calls {prof['sync_sites']}")
+    print(line)
+    if prof:
+        for op in prof["top"]:
+            print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
+    return timing
+
+
+def check_path_i2(run):
+    import torch
+
+    hyps, refs = run["hyps"], run["refs"]
+    t0 = time.perf_counter()
+    word = [_py_distance_hits(h.split(), r.split()) for h, r in zip(hyps, refs)]
+    plain_dist = [_py_levenshtein(h.split(), r.split()) for h, r in zip(hyps, refs)]
+    oracle_s = time.perf_counter() - t0
+    _check(list(run["dists"]) == plain_dist, f"path I2: edit_distance_padded on the card equals the plain Python DP"
+           f" on all {len(hyps):,} utterances")
+    _check([d for d, _ in word] == plain_dist, "path I2: the oracle's two DPs agree on every distance")
+    errors, hits = sum(d for d, _ in word), sum(h for _, h in word)
+    n_ref, n_hyp = sum(len(r.split()) for r in refs), sum(len(h.split()) for h in hyps)
+    _check(n_ref == I2_WORDS, f"path I2 corpus: {len(refs):,} utterances, {n_ref:,} reference words")
+    st = run["states"]
+    _check(int(st["WER.errors"]) == errors and int(st["WER.total"]) == n_ref
+           and run["update_counts"] == (errors, n_ref)
+           and all(int(st[f"{m}.errors"]) == errors and int(st[f"{m}.hits"]) == hits
+                   and int(st[f"{m}.total_target"]) == n_ref and int(st[f"{m}.total_pred"]) == n_hyp
+                   for m in ("MatchErrorRate", "WordInfoLost", "WordInfoPreserved")),
+           f"path I2 word states equal the plain Python DP: {errors:,} errors, {hits:,} hits, {n_ref:,} reference and"
+           f" {n_hyp:,} predicted words (WER.update_counts from the card's distances too)")
+    chars = [_py_levenshtein(h, r) for h, r in zip(hyps[:I2_CHAR_ORACLE], refs[:I2_CHAR_ORACLE])]
+    from metrics_tpu_torch.functional.text import _np_edit_distance
+
+    _check(chars == [_np_edit_distance(list(h), list(r)) for h, r in zip(hyps[:I2_CHAR_ORACLE], refs)],
+           f"path I2: the port's character DP equals the plain Python DP on the first {I2_CHAR_ORACLE} utterances")
+    cpu = _i2_collection("cpu", dist_sync_on_step=True)
+    worst = 0.0
+    for step, lo in enumerate(range(0, len(hyps), I2_BATCH)):
+        value = cpu(hyps[lo:lo + I2_BATCH], refs[lo:lo + I2_BATCH])
+        for k, v in value.items():
+            worst = max(worst, _i_close(f"path I2 step {step} {k} vs CPU", run["values"][step][k], v.item(), RTOL_I))
+    _i_states_equal("path I2", st, _text_states(cpu))
+    n_chars = int(st["CharErrorRate.total_target"])
+    oracle = {"WER": errors / n_ref, "CharErrorRate": int(st["CharErrorRate.errors"]) / n_chars,
+              "MatchErrorRate": errors / (errors + hits), "WordInfoPreserved": (hits / n_ref) * (hits / n_hyp),
+              "WordInfoLost": 1 - (hits / n_ref) * (hits / n_hyp),
+              "EditDistance": int(st["EditDistance.total_distance"]) / len(hyps)}
+    for k, want in oracle.items():
+        worst = max(worst, _i_close(f"path I2 epoch {k} vs oracle", run["epoch"][k], want, RTOL_I))
+    _i_close("path I2 WER from the card's distances", run["wer_counts"], errors / n_ref, RTOL_I)
+    print(f"  ok: path I2: {len(run['ms'])} steps, every step and epoch value equals the CPU run, the epoch values the"
+          f" float64 rates of the oracle's counts (rtol {RTOL_I}; the largest difference {worst:.2f} of the"
+          f" tolerance; oracle DPs {oracle_s:.1f} s); epoch {run['epoch']}")
+    n_groups = len(_I2_MEMBERS)
+    _check(run["updates"] == [n_groups] * len(run["ms"]) and run["reduces"] == [n_groups] * len(run["ms"]),
+           f"path I2: {n_groups} updates and {n_groups} all_reduce calls a step (six singleton groups of int64 states,"
+           f" as in the JAX package)")
+    ms = statistics.median(run["ms"])
+    timing = {"ms_per_step": ms, "first_step_ms": run["ms"][0], "epoch_ms": run["epoch_ms"],
+              "dp_ms": statistics.median(run["dp_ms"])}
+    line = (f"[12] path I2: {len(run['ms'])} steps of {I2_BATCH} utterances: median {ms:.3f} ms/step; epoch compute"
+            f" {run['epoch_ms'][1]:.2f} ms; edit_distance_padded {timing['dp_ms']:.3f} ms a batch")
+    for key in ("profile", "dp_profile"):
+        prof = run.get(key)
+        if prof:
+            wall = ms if key == "profile" else timing["dp_ms"]
+            timing[key] = {"device_ms": prof["device_ms"], "share": prof["device_ms"] / wall, "ops": prof["ops"],
+                           "host_syncs": prof["host_syncs"]}
+            line += (f"; {'step' if key == 'profile' else 'DP'} profiled: {prof['device_ms']:.3f} ms device"
+                     f" ({timing[key]['share']:.0%}), {prof['ops']} operations, {prof['host_syncs']} synchronizing"
+                     f" calls {prof['sync_sites'][:3]}")
+    print(line)
+    return timing
+
+
+def _ngrams(tokens, n):
+    return Counter(tuple(tokens[i:i + n]) for i in range(len(tokens) - n + 1))
+
+
+def _oracle_bleu(hyps, refs, n_gram=4):
+    """(clipped matches, totals, c, r) from Counter n-grams, and the float64 BLEU made from them."""
+    num, den, c, r = [0] * n_gram, [0] * n_gram, 0, 0
+    for h, rs in zip(hyps, refs):
+        c += len(h)
+        r += min((abs(len(x) - len(h)), k, len(x)) for k, x in enumerate(rs))[2]
+        for n in range(1, n_gram + 1):
+            hc = _ngrams(h, n)
+            best = Counter()
+            for x in rs:
+                best |= _ngrams(x, n)
+            num[n - 1] += sum(min(v, best[g]) for g, v in hc.items())
+            den[n - 1] += sum(hc.values())
+    if min(num) == 0:
+        return num, den, c, r, 0.0
+    log_p = sum(np.log(a / b) for a, b in zip(num, den)) / n_gram
+    return num, den, c, r, (1.0 if c > r else np.exp(1 - r / c)) * np.exp(log_p)
+
+
+def _oracle_chrf(hyps, refs, order=6, beta=2.0):
+    stats = np.zeros((3, order), np.int64)
+    for h, r in zip(hyps, refs):
+        h, r = "".join(h.split()), "".join(r.split())
+        for n in range(1, order + 1):
+            hc = Counter(h[i:i + n] for i in range(len(h) - n + 1))
+            rc = Counter(r[i:i + n] for i in range(len(r) - n + 1))
+            stats[0, n - 1] += sum(min(v, rc[g]) for g, v in hc.items())
+            stats[1, n - 1] += sum(hc.values()) if rc else 0
+            stats[2, n - 1] += sum(rc.values())
+    eff = (stats[1] > 0) & (stats[2] > 0)
+    prec = (stats[0][eff] / stats[1][eff]).mean()
+    rec = (stats[0][eff] / stats[2][eff]).mean()
+    return stats, (1 + beta**2) * prec * rec / (beta**2 * prec + rec)
+
+
+def check_path_i3(run):
+    import torch
+
+    from metrics_tpu_torch.functional.text_sacrebleu import tokenize_sacrebleu
+
+    hyps, refs = run["hyps"], run["refs"]
+    st = run["states"]
+    t0 = time.perf_counter()
+    worst = 0.0
+    for name, tok in (("BLEUScore", str.split), ("SacreBLEUScore", lambda s: tokenize_sacrebleu(s, "13a"))):
+        num, den, c, r, score = _oracle_bleu([tok(h) for h in hyps], [[tok(x)] for x in refs])
+        np.testing.assert_allclose(st[f"{name}.numerator"], num, rtol=RTOL_I_ORACLE, err_msg=f"path I3 {name}")
+        _check(st[f"{name}.denominator"].tolist() == den and int(st[f"{name}.trans_len"]) == c
+               and int(st[f"{name}.ref_len"]) == r, f"path I3 {name}: n-gram totals {den}, lengths {c:,} / {r:,} equal"
+               f" Counter n-grams; clipped matches {num} within rtol {RTOL_I_ORACLE}")
+        worst = max(worst, _i_close(f"path I3 {name} vs float64", run["epoch"][name], score, RTOL_I_ORACLE))
+    stats, chrf = _oracle_chrf(hyps, refs)
+    _check(np.array_equal(st["CHRFScore.stats"], stats), "path I3 CHRFScore statistics equal Counter character"
+           " n-grams bit for bit")
+    worst = max(worst, _i_close("path I3 CHRFScore vs float64", run["epoch"]["CHRFScore"], chrf, RTOL_I))
+    oracle_s = time.perf_counter() - t0
+    cpu = _i3_metrics(torch.device("cpu"))
+    ter = cpu.pop("TranslationEditRate")
+    t0 = time.perf_counter()
+    for step, lo in enumerate(range(0, I3_SENTENCES, I3_BATCH)):
+        _i3_feed(cpu, hyps[lo:lo + I3_BATCH], refs[lo:lo + I3_BATCH])
+        if step < _i3_ter_batches():
+            _i3_feed({"TranslationEditRate": ter}, hyps[lo:lo + I3_BATCH], refs[lo:lo + I3_BATCH])
+    cpu_s = time.perf_counter() - t0
+    _i_states_equal("path I3", {k: v for k, v in st.items() if not k.startswith("Translation")}, _text_states(cpu))
+    _i_states_equal(f"path I3 TER after the first {_i3_ter_batches()} batches (cut: the CPU run repeats only"
+                    f" these)", run["ter_first"], _text_states({"TranslationEditRate": ter}))
+    for name, metric in cpu.items():
+        worst = max(worst, _i_close(f"path I3 {name} vs CPU", run["epoch"][name], metric.compute().item(), RTOL_I))
+    _check(all(c["all_gather"] == 0 for c in run["epoch_collectives"].values())
+           and [c["all_reduce"] for c in run["epoch_collectives"].values()] == [2, 2, 1, 1],
+           "path I3 epoch computes sync with one all_reduce per state dtype (BLEU float32 + int64, chrF int64, TER"
+           " float32), no gather")
+    print(f"  ok: path I3: {I3_SENTENCES:,} sentences; states equal the CPU run, values the float64 oracle (the"
+          f" largest difference {worst:.2f} of the tolerance; oracle {oracle_s:.1f} s, CPU run {cpu_s:.1f} s); epoch"
+          f" {run['epoch']}")
+    timing = {f"{k}_ms_per_step": statistics.median(v) for k, v in run["ms"].items()}
+    timing["epoch_ms"] = run["epoch_ms"]
+    print("[12] path I3 median ms an update of 64 sentences: " + "; ".join(
+        f"{k} {statistics.median(v):.2f} (total {sum(v) / 1e3:.2f} s)" for k, v in run["ms"].items())
+        + "; epoch compute ms: " + "; ".join(f"{k} {v:.2f}" for k, v in run["epoch_ms"].items()))
+    return timing
+
+
+_SQUAD_PUNCT = set("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+
+
+def _squad_tokens(text):
+    text = "".join(ch for ch in text.lower() if ch not in _SQUAD_PUNCT)
+    return [w for w in text.split() if w not in _I4_ARTICLES]
+
+
+def _squad_oracle(preds, answers):
+    em = f1 = 0.0
+    for p, golds in zip(preds, answers):
+        pt_ = _squad_tokens(p)
+        best_em = best_f1 = 0.0
+        for g in golds:
+            gt = _squad_tokens(g)
+            best_em = max(best_em, float(pt_ == gt))
+            common = sum((Counter(pt_) & Counter(gt)).values())
+            if common:
+                prec, rec = common / len(pt_), common / len(gt)
+                best_f1 = max(best_f1, 2 * prec * rec / (prec + rec))
+        em += best_em
+        f1 += best_f1
+    return {"exact_match": 100 * em / len(preds), "f1": 100 * f1 / len(preds)}
+
+
+def check_path_i4(run):
+    import re
+
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.functional import text_rouge
+
+    hyps, refs = run["hyps"], run["refs"]
+    _check(run["min_cells"] >= 50_000, f"path I4: every ROUGE batch holds at least {run['min_cells']:,} LCS cells, so"
+           " its LCS ran on the card")
+
+    def tokens(s):
+        return [t for t in re.split(r"[^a-z0-9]+", s.lower()) if t]
+
+    pairs = [(tokens(h), tokens(r)) for h, r in zip(hyps, refs)]
+    t0 = time.perf_counter()
+    oracle_lcs = [_py_lcs(a, b) for a, b in pairs[:I4_LCS_ORACLE]]
+    _check(run["lcs"][:I4_LCS_ORACLE] == oracle_lcs, f"path I4: the card's LCS equals the plain Python DP on the first"
+           f" {I4_LCS_ORACLE} pairs")
+    cpu_lcs = []
+    for lo in range(0, I4_PAIRS, I4_BATCH):
+        cpu_lcs += text_rouge._lcs_lens(pairs[lo:lo + I4_BATCH], torch.device("cpu"))
+    _check(run["lcs"] == cpu_lcs, f"path I4: the card's LCS equals the CPU run's on all {I4_PAIRS:,} pairs")
+    sums = {}
+    for (a, b), lcs in zip(pairs, run["lcs"]):
+        for key, (overlap, pa, pb) in {
+            "rouge1": (sum((_ngrams(a, 1) & _ngrams(b, 1)).values()), len(a), len(b)),
+            "rouge2": (sum((_ngrams(a, 2) & _ngrams(b, 2)).values()), max(len(a) - 1, 0), max(len(b) - 1, 0)),
+            "rougeL": (lcs, len(a), len(b)),
+        }.items():
+            p, r = (overlap / pa if pa else 0.0), (overlap / pb if pb else 0.0)
+            for stat, v in zip(("precision", "recall", "fmeasure"), (p, r, 2 * p * r / (p + r) if p + r else 0.0)):
+                sums[f"{key}_{stat}"] = sums.get(f"{key}_{stat}", 0.0) + v
+    worst = max(_i_close(f"path I4 {k} vs float64", run["epoch"][k], v / I4_PAIRS, RTOL_I_ORACLE)
+                for k, v in sums.items())
+    squad = _squad_oracle(run["squad_preds"], run["squad_answers"])
+    worst = max(worst, *(_i_close(f"path I4 SQuAD {k} vs float64", run["squad_epoch"][k], v, RTOL_I_ORACLE)
+                         for k, v in squad.items()))
+    oracle_s = time.perf_counter() - t0
+    rouge = pt.ROUGEScore(("rouge1", "rouge2", "rougeL"), device="cpu")
+    squad_cpu = pt.SQuAD(device="cpu")
+    for lo in range(0, I4_PAIRS, I4_BATCH):
+        rouge.update(hyps[lo:lo + I4_BATCH], refs[lo:lo + I4_BATCH])
+    for lo in range(0, I4_QUESTIONS, I4_BATCH):
+        squad_cpu.update(run["squad_preds"][lo:lo + I4_BATCH], run["squad_answers"][lo:lo + I4_BATCH])
+    _i_states_equal("path I4", run["states"], _text_states({"ROUGEScore": rouge, "SQuAD": squad_cpu}))
+    _check(run["epoch_collectives"]["all_gather"] == 0 and run["epoch_collectives"]["all_reduce"] == 2,
+           "path I4 ROUGE epoch compute: two all_reduce calls (float32 sums, int64 pair count), no gather")
+    print(f"  ok: path I4: ROUGE over {I4_PAIRS:,} pairs and SQuAD over {I4_QUESTIONS:,} questions equal the CPU run's"
+          f" states and the float64 oracle (rtol {RTOL_I_ORACLE}; the largest difference {worst:.2f} of the tolerance;"
+          f" oracle {oracle_s:.1f} s); ROUGE {run['epoch']}; SQuAD {run['squad_epoch']}")
+    timing = {"rouge_ms_per_step": statistics.median(run["ms"]), "lcs_ms": statistics.median(run["lcs_ms"]),
+              "rouge_epoch_ms": run["epoch_ms"], "squad_ms_per_step": statistics.median(run["squad_ms"]),
+              "squad_epoch_ms": run["squad_epoch_ms"]}
+    print(f"[12] path I4: ROUGE median {timing['rouge_ms_per_step']:.2f} ms an update of {I4_BATCH} pairs (the LCS on"
+          f" the card {timing['lcs_ms']:.2f} ms of a batch), epoch {run['epoch_ms']:.2f} ms; SQuAD"
+          f" {timing['squad_ms_per_step']:.2f} ms an update, epoch {run['squad_epoch_ms']:.2f} ms")
+    return timing
+
+
+def check_path_i(result):
+    timings = {}
+    for part, check in (("I1", check_path_i1), ("I2", check_path_i2), ("I3", check_path_i3), ("I4", check_path_i4)):
+        t0 = time.perf_counter()
+        timings[part] = check(result[part])
+        print(f"    path {part} checks on the host: {time.perf_counter() - t0:.1f} s")
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -3334,6 +4082,16 @@ def main() -> int:
                             "H3_emi": paths["h"]["H3"]["emi_ms"], "H4": paths["h"]["H4"]["epoch_ms"]},
         "path_h_peak_bytes": {"H1": paths["h"]["H1"]["peak_bytes"], "H3_emi": paths["h"]["H3"]["emi_peak_bytes"],
                               "H4": paths["h"]["H4"]["peak_bytes"]},
+        "path_i_ms_per_step": {"I1": paths["i"]["I1"]["ms_per_step"], "I2": paths["i"]["I2"]["ms_per_step"],
+                               "I2_edit_distance_padded": paths["i"]["I2"]["dp_ms"],
+                               **{f"I3_{k}": v for k, v in paths["i"]["I3"].items() if k.endswith("_ms_per_step")},
+                               "I4_rouge": paths["i"]["I4"]["rouge_ms_per_step"], "I4_lcs": paths["i"]["I4"]["lcs_ms"],
+                               "I4_squad": paths["i"]["I4"]["squad_ms_per_step"]},
+        "path_i_epoch_ms": {"I1": paths["i"]["I1"]["epoch_ms"][1], "I2": paths["i"]["I2"]["epoch_ms"][1],
+                            **{f"I3_{k}": v for k, v in paths["i"]["I3"]["epoch_ms"].items()},
+                            "I4_rouge": paths["i"]["I4"]["rouge_epoch_ms"], "I4_squad": paths["i"]["I4"]["squad_epoch_ms"]},
+        "path_i1_peak_bytes": paths["i"]["I1"]["peak_bytes"],
+        "path_i1_bound_ms": paths["i"]["I1"]["bound_ms"],
     }
 
     print(json.dumps({"kernels": [kernel]}))

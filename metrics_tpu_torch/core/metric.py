@@ -374,6 +374,18 @@ class Metric(nn.Module, ABC):
         if not self._in_forward:
             self._epoch_watermark += 1
 
+    def note_count(self, amount: int) -> None:
+        """Advance the host-side count bound by ``amount``, as the JAX package's
+        ``Metric.note_count`` does.
+
+        The bound advances by the smallest tensor argument's size an update
+        (``_note_rows``); an update whose arguments are host values (strings,
+        token lists) or that adds more than one per element to a count state
+        calls this with what it adds. A host int: nothing is read from the
+        device. The bound rides ``state_dict`` as ``_count_bound``.
+        """
+        self._count_bound += int(amount)
+
     # ------------------------------------------------------------------ sync
     def _synced_state(self, dist_sync_fn: Optional[Callable] = None, state: Optional[State] = None) -> State:
         """The cross-rank reduction of ``state`` (default: the current state, which stays as it is)."""

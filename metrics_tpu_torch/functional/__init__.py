@@ -105,3 +105,20 @@ from metrics_tpu_torch.functional.pairwise import (  # noqa: F401
     pairwise_manhattan_distance,
 )
 from metrics_tpu_torch.functional.self_supervised import embedding_similarity  # noqa: F401
+from metrics_tpu_torch.functional.nlp import bleu_score  # noqa: F401
+from metrics_tpu_torch.functional.text import (  # noqa: F401
+    cer,
+    edit_distance_padded,
+    lcs_length_padded,
+    match_error_rate,
+    wer,
+    word_information_lost,
+    word_information_preserved,
+)
+from metrics_tpu_torch.functional.text_chrf import chrf_score  # noqa: F401
+from metrics_tpu_torch.functional.text_edit import edit_distance  # noqa: F401
+from metrics_tpu_torch.functional.text_perplexity import perplexity  # noqa: F401
+from metrics_tpu_torch.functional.text_rouge import rouge_score  # noqa: F401
+from metrics_tpu_torch.functional.text_sacrebleu import sacre_bleu_score  # noqa: F401
+from metrics_tpu_torch.functional.text_squad import squad  # noqa: F401
+from metrics_tpu_torch.functional.text_ter import translation_edit_rate  # noqa: F401
