@@ -129,7 +129,7 @@ Phases, in order; each raises on failure and none is caught:
    the non-NaN samples) and within relative alpha of ``np.quantile`` of the finite samples; each key's min-row count-min estimate is at least its true count. Each step makes one
    update and one ``all_reduce`` per compute group, the epoch one ``all_reduce`` per group, and a profiled step
    of G1-G4 makes no synchronizing CUDA call. Prints ms per step, epoch ``compute()`` ms, a profiled step's
-   device ms, operations and ``index_add`` (scatter) ms, and each state's bytes beside the exact mode's for the
+   device ms, operations and scatter ms, and each state's bytes beside the exact mode's for the
    same epoch. Path G runs no hand-written kernel: the JAX package updates its sketches with XLA scatter-adds.
 11. Path H, in the same group with ``device="cuda"`` (nothing caught), the families the JAX package computes
    in XLA at their users' sizes, data from seeded numpy generators (nothing downloaded). H1, COCO val2017's
@@ -175,7 +175,26 @@ Phases, in order; each raises on failure and none is caught:
    and SQuAD over v1.1 dev's 10,570 questions, both against a float64 oracle (rtol 1e-5) and the CPU run. Prints
    ms per step, epoch ms, profiled steps of I1 and I2 and I1's peak memory. Path I runs no hand-written kernel: the
    JAX package computes its DPs, BLEU counts and log-softmax in XLA, never Pallas.
-13. The ``kernels`` JSON line, then the device JSON as the last line.
+13. Path J, the pure view, the keyed slab and the wrappers, in the same group with ``device="cuda"`` (nothing
+   caught), at a multi-tenant deployment's size (per-tenant metrics over 10,000 tenants, the JAX package's
+   ``bench.py`` keyed scenario), data from seeded numpy: 20 steps of 65,536 samples whose tenant ids follow
+   Zipf(1.1) over the tenants through a seeded permutation (16 tenants never drawn) plus 32 ids out of range a
+   step. J1 ``Keyed(AUROC(approx="sketch"), 10,000)`` with ``dist_sync_on_step`` (a 327.7 MB slab): counts equal a
+   numpy ``bincount`` over (tenant, label, bin) and the CPU run (first 2 steps) bit for bit, per-tenant AUROC float64
+   from the oracle counts (rtol 1e-5), empty tenants NaN, 640 dropped samples counted, each step's collective
+   calls the unkeyed metric's. J2 ``Keyed(Quantile(q=0.99), 10,000)`` over request latencies: counts equal a
+   float64 ``searchsorted`` oracle and the CPU run, 8 tenants' p99 an unkeyed Quantile fed only their values. J3
+   ``Keyed(Accuracy(), 1,000)`` over path A's batches: per-cohort correct / total equal numpy. J4
+   ``HeavyHitters(AUROC(approx="sketch"), 256 hot, (4, 1,024) tail)`` over Zipf(1.1) keys from 1,000,000: hot +
+   tail mass conserved bit for bit, exact keys equal the oracle, tail reads within their certificate, the card equal
+   to the CPU run. J5 ``BootStrapper(AUROC(approx="sketch"), 100 copies)`` over 10 steps: per-copy counts equal
+   numpy on the same ``RandomState`` draws, mean / std float64 (rtol 1e-5). J6 Running, MetricTracker,
+   ClasswiseWrapper, MinMaxMetric and MultioutputWrapper equal the arithmetic of their unwrapped parts. J7
+   ``AUROC(approx="sketch").pure()`` (init, update, ``sync(state, group)``, compute) equals the stateful metric
+   bit for bit. Prints each part's ms per step, device share, synchronizing calls of a profiled step, collective
+   calls a step and peak bytes above the state (J1 and J2 within 1 GiB). Path J runs no hand-written kernel: the
+   JAX package's slab scatter is ``jax.ops.segment_sum``, its per-sample deltas ``jax.vmap``, never Pallas.
+14. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -553,6 +572,7 @@ def phase_paths():
         path_g = run_path_g(dev, a_batches, b_batches)
         path_h = run_path_h(dev)
         path_i = run_path_i(dev)
+        path_j = run_path_j(dev, a_batches)
     finally:
         dist.destroy_process_group()
 
@@ -578,9 +598,12 @@ def phase_paths():
     g_timings = check_path_g(path_g)
     h_timings = check_path_h(path_h)
     i_timings = check_path_i(path_i)
+    t0 = time.perf_counter()
+    j_timings = check_path_j(path_j)
+    print(f"    path J checks on the host: {time.perf_counter() - t0:.1f} s")
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
-            "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings}
+            "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings, "j": j_timings}
 
 
 def _profile_step(collection, batch):
@@ -1088,7 +1111,8 @@ def _profile_call(step, calls=5):
     return {"device_ms": sum(r["us_per_call"] for r in rows) / 1e3, "ops": sum(r["per_call"] for r in rows),
             "host_syncs": len(syncs), "sync_sites": sorted(sites.items(), key=lambda kv: -kv[1])[:8],
             "sort_ms": sum(r["us_per_call"] for r in rows if "sort" in r["name"].lower()) / 1e3,
-            "scatter_ms": sum(r["us_per_call"] for r in rows if "indexfunc" in r["name"].lower()) / 1e3,
+            "scatter_ms": sum(r["us_per_call"] for r in rows
+                              if "indexfunc" in r["name"].lower() or "scatter_gather" in r["name"].lower()) / 1e3,
             "top": rows[:8]}
 
 
@@ -2259,7 +2283,7 @@ def check_path_g(result):
             timing.update({"profile_device_ms": prof["device_ms"], "profile_ops": prof["ops"],
                            "scatter_ms": scatter, "host_syncs": prof["host_syncs"]})
             print(f"    path {part} step, profiled: {prof['device_ms']:.3f} ms device time, {prof['ops']:g} device"
-                  f" operations, index_add (scatter) kernels {scatter:.3f} ms, {prof['host_syncs']} synchronizing"
+                  f" operations, scatter_add / index_add kernels {scatter:.3f} ms, {prof['host_syncs']} synchronizing"
                   f" CUDA calls")
             for op in prof["top"]:
                 print(f"      {op['us_per_call']:10.1f} us x{op['per_call']:g}  {op['name'][:100]}")
@@ -4032,6 +4056,656 @@ def check_path_i(result):
     return timings
 
 
+# Path J: the pure view, the keyed slab and the wrappers at a multi-tenant deployment's size: per-tenant metrics over
+# 10,000 tenants (the JAX package's bench.py:138, KEYED_SLOTS), a heavy-hitter tier over a 1,000,000-key space with
+# 256 hot rows and a (4, 1,024) tail (bench.py:163-166), at the port's default sketch grids
+J_SLOTS = 10_000
+J_STEPS, J_N = 20, 65_536
+J_UNSEEN = 16  # tenant ids the Zipf draw never reaches: the empty policy
+J_OUT = 32  # out-of-range ids a batch (half -1, half K): the drops
+J_CPU_STEPS = 2  # steps the CPU run of J1, J2, J3 and J4 repeats; the numpy oracles hold every step
+J_QUANTILE_TENANTS = 8
+J3_COHORTS = 1_000
+J4_HOT, J4_TAIL, J4_KEYS, J4_TAIL_CHECKS = 256, (4, 1_024), 1_000_000, 64
+J5_STEPS, J5_COPIES = 10, 100
+J6_EPOCHS, J6_OUTPUTS, J6_WINDOW = 3, 8, 5
+J6_ROWS = 2 * E1_N // J6_OUTPUTS  # two of E1's batches a step: 1,048,576 x 8
+J_PEAK_BUDGET = 1 << 30  # J1 / J2: peak device bytes a step above what was live before it
+# per-tenant AUROC and the bootstrap mean / std from equal counts: float64 math rounded once to float32, against
+# float64 numpy over the oracle counts
+RTOL_J = 1e-5
+RTOL_J_FLOAT = 1e-6  # float32 sums in another order (Running's MSE, MultioutputWrapper's R2)
+
+
+def _j_tenant_draw(seed, steps, n, num_slots, unseen):
+    """Per step ``n`` tenant ids drawn Zipf(1.1) over ``num_slots - unseen`` ranks through a seeded permutation (the
+    last ``unseen`` tenants of the permutation are never drawn), with ``J_OUT`` ids out of range (-1 and K) at
+    random places; and the unseen tenants."""
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(num_slots)
+    cdf = np.cumsum(np.arange(1, num_slots - unseen + 1, dtype=np.float64) ** -1.1)
+    cdf /= cdf[-1]
+    draws = []
+    for _ in range(steps):
+        slots = perm[np.minimum(np.searchsorted(cdf, rng.random_sample(n), side="right"), len(cdf) - 1)]
+        bad = rng.choice(n, J_OUT, replace=False)
+        slots[bad[: J_OUT // 2]], slots[bad[J_OUT // 2:]] = -1, num_slots
+        draws.append(slots.astype(np.int64))
+    return draws, np.sort(perm[num_slots - unseen:])
+
+
+def _j_data():
+    """J1 / J2 / J5 / J7 host batches: tenant ids, 30% positive labels with scores sigmoid(N(0, 1) + 1.5 label), and
+    request latencies in seconds (lognormal, 20 ms median, sigma 1)."""
+    rng = np.random.RandomState(51)
+    slots, unseen = _j_tenant_draw(50, J_STEPS, J_N, J_SLOTS, J_UNSEEN)
+    batches = []
+    for s in slots:
+        labels = (rng.random_sample(J_N) < 0.3).astype(np.int64)
+        scores = (1 / (1 + np.exp(-(rng.standard_normal(J_N) + 1.5 * labels)))).astype(np.float32)
+        latency = (0.02 * np.exp(rng.standard_normal(J_N))).astype(np.float32)
+        batches.append({"slots": s, "labels": labels, "scores": scores, "latency": latency})
+    return batches, unseen
+
+
+def _j_keys():
+    """J4's keys: Zipf(1.1) over 1,000,000 keys through a seeded permutation, one int key a sample."""
+    rng = np.random.RandomState(52)
+    perm = rng.permutation(J4_KEYS)
+    cdf = np.cumsum(np.arange(1, J4_KEYS + 1, dtype=np.float64) ** -1.1)
+    cdf /= cdf[-1]
+    return [perm[np.minimum(np.searchsorted(cdf, rng.random_sample(J_N), side="right"), J4_KEYS - 1)]
+            for _ in range(J_STEPS)]
+
+
+def _j_host(value):
+    if isinstance(value, dict):
+        return {k: _j_host(v) for k, v in value.items()}
+    # a copy: states the wrappers update in place must not change a snapshot taken on the CPU
+    return value.detach().to("cpu", copy=True).numpy() if hasattr(value, "detach") else value
+
+
+def _j_counts(metric):
+    """{state: host counts} of a metric's current state."""
+    return {n: _j_host(v.counts if hasattr(v, "counts") else v) for n, v in metric._current_state().items()}
+
+
+def _j_bytes(metric):
+    return sum((v.counts if hasattr(v, "counts") else v).numel() * (v.counts if hasattr(v, "counts") else v)
+               .element_size() for v in metric._current_state().values())
+
+
+def _j_steps(device, metric, batches, call, on_step=None):
+    """Run ``call(metric, batch)`` over ``batches``: the values, ms per step (host clock, synchronized), the
+    ``all_reduce`` / ``all_gather`` calls of each step, and the peak device bytes each step allocated above what was
+    live before it."""
+    import torch
+
+    values, ms, calls, peaks = [], [], [], []
+    for i, batch in enumerate(batches):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with _CountCollectives() as coll:
+            t0 = time.perf_counter()
+            values.append(call(metric, batch))
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append(dict(coll))
+        if device.type == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+        if on_step is not None:
+            on_step(i)
+    return values, ms, calls, peaks
+
+
+def _j_summary(label, ms, calls, peaks, profile, state_bytes):
+    """The line a part prints, and its timings: ms/step (median), device share, synchronizing calls of a profiled
+    step, collective calls a step and the peak above the state."""
+    med = statistics.median(ms)
+    share = profile["device_ms"] / med if profile and profile["device_ms"] else None
+    per_step = {k: calls[-1][k] for k in ("all_reduce", "all_gather")}
+    peak = max(peaks) if peaks else None
+    line = (f"    {label}: median {med:.3f} ms/step (first {ms[0]:.1f}); {per_step['all_reduce']} all_reduce /"
+            f" {per_step['all_gather']} all_gather a step")
+    if peak is not None:
+        line += f"; peak {peak / 2**20:.1f} MiB above the {state_bytes / 1e6:.1f} MB state"
+    if profile:
+        device = (f"device {profile['device_ms']:.3f} ms ({100 * share:.1f}%), {profile['ops']:.0f} operations"
+                  if profile["device_ms"] else "device time not measured (the profiler's trace held none)")
+        line += (f"; profiled step: {device}, {profile['host_syncs']} synchronizing calls {profile['sync_sites'][:3]};"
+                 f" top {[(r['name'][:40], round(r['us_per_call'], 1)) for r in profile['top'][:4]]}")
+    print(line)
+    return {"ms_per_step": med, "first_ms": ms[0], "device_share": share, "host_syncs": profile and profile["host_syncs"],
+            "collectives_per_step": per_step, "peak_bytes": peak, "state_bytes": state_bytes,
+            "device_ms": profile and profile["device_ms"]}
+
+
+def _j_profile(step, calls=3):
+    """One ``step()`` profiled: device milliseconds and operations from ``torch.profiler`` over ``calls`` calls
+    (``None`` where its trace holds no device time: not measured), and the synchronizing CUDA calls of one more."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+    rows = sorted(({"name": e.key, "per_call": e.count / calls, "us_per_call": e.self_device_time_total / calls}
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0), key=lambda r: -r["us_per_call"])
+    device_ms = sum(r["us_per_call"] for r in rows) / 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = Counter(f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
+                    for w in caught if "synchroniz" in str(w.message).lower())
+    return {"device_ms": device_ms if device_ms > 0 else None, "ops": sum(r["per_call"] for r in rows),
+            "host_syncs": sum(sites.values()), "sync_sites": sites.most_common(8), "top": rows[:8]}
+
+
+def run_path_j(device, a_batches):
+    """Path J inside the caller's process group: J1-J7 on the card, timed and profiled, with what the checks need
+    on the host."""
+    import torch
+    import torch.distributed as dist
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.observability import counters
+
+    data, unseen = _j_data()
+    out = {"data": data, "unseen": unseen}
+    to = (lambda x: torch.from_numpy(x).to(device))
+
+    # J1: Keyed(AUROC(approx="sketch")) per tenant, dist_sync_on_step
+    def j1_call(m, b):
+        return m(b[0], b[1], slot=b[2])
+
+    j1_in = [(to(b["scores"]), to(b["labels"]), to(b["slots"])) for b in data]
+    keyed = pt.Keyed(pt.AUROC(approx="sketch", device=device), num_slots=J_SLOTS, dist_sync_on_step=True)
+    early = {}
+    counters.reset()
+    values, ms, calls, peaks = _j_steps(device, keyed, j1_in, j1_call,
+                                        on_step=lambda i: early.update(_j_counts(keyed)) if i == J_CPU_STEPS - 1
+                                        else None)
+    dropped = counters.snapshot()["slab_dropped_samples"]
+    unkeyed = pt.AUROC(approx="sketch", device=device, dist_sync_on_step=True)
+    with _CountCollectives() as unkeyed_calls:
+        unkeyed(j1_in[0][0], j1_in[0][1])
+    _sync(device)
+    t0 = time.perf_counter()
+    with _CountCollectives() as epoch_calls:
+        epoch = keyed.compute()
+        _sync(device)
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    probe = [int(k) for k in np.random.RandomState(53).choice(J_SLOTS, 6, replace=False)] + [int(unseen[0])]
+    slot_reads = {k: _j_host(keyed.compute(slot=k)) for k in probe}
+    fresh = pt.Keyed(pt.AUROC(approx="sketch", device=device), num_slots=J_SLOTS, dist_sync_on_step=True)
+    profile = _j_profile(lambda: j1_call(fresh, j1_in[0])) if device.type == "cuda" else None
+    del fresh
+    out["J1"] = {"counts": _j_counts(keyed), "early": early, "last_value": _j_host(values[-1]),
+                 "epoch": _j_host(epoch), "epoch_ms": epoch_ms, "epoch_calls": dict(epoch_calls),
+                 "slot_reads": slot_reads, "dropped": dropped, "unkeyed_calls": dict(unkeyed_calls),
+                 "calls": calls, "summary": _j_summary(f"J1 Keyed(AUROC sketch), K={J_SLOTS:,}", ms, calls, peaks, profile,
+                                                        _j_bytes(keyed))}
+    del keyed, values
+
+    # J2: Keyed(Quantile(q=0.99)): per-tenant p99 request latency
+    def j2_call(m, b):
+        return m(b[0], slot=b[1])
+
+    j2_in = [(to(b["latency"]), j1[2]) for b, j1 in zip(data, j1_in)]
+    keyed = pt.Keyed(pt.Quantile(q=0.99, device=device), num_slots=J_SLOTS, dist_sync_on_step=True)
+    early = {}
+    values, ms, calls, peaks = _j_steps(device, keyed, j2_in, j2_call,
+                                        on_step=lambda i: early.update(_j_counts(keyed)) if i == J_CPU_STEPS - 1
+                                        else None)
+    epoch = keyed.compute()
+    tenants = [int(t) for t in np.random.RandomState(54).choice(
+        np.setdiff1d(np.arange(J_SLOTS), unseen), J_QUANTILE_TENANTS, replace=False)]
+    tenants[0] = int(np.bincount(np.concatenate([b["slots"][b["slots"] >= 0] for b in data])).argmax())  # the heaviest
+    alone = {}
+    for t in tenants:
+        single = pt.Quantile(q=0.99, device=device)
+        for b in data:
+            single.update(to(b["latency"][b["slots"] == t]))
+        alone[t] = (float(single.compute()), float(epoch[t]), int(sum((b["slots"] == t).sum() for b in data)))
+    fresh = pt.Keyed(pt.Quantile(q=0.99, device=device), num_slots=J_SLOTS, dist_sync_on_step=True)
+    profile = _j_profile(lambda: j2_call(fresh, j2_in[0])) if device.type == "cuda" else None
+    del fresh
+    out["J2"] = {"counts": _j_counts(keyed), "early": early, "epoch": _j_host(epoch), "alone": alone,
+                 "summary": _j_summary(f"J2 Keyed(Quantile(0.99)), K={J_SLOTS:,}", ms, calls, peaks, profile,
+                                       _j_bytes(keyed))}
+    del keyed, values, j2_in
+
+    # J3: Keyed(Accuracy()) per cohort over path A's batches
+    cohorts = [np.random.RandomState(55 + i).randint(0, J3_COHORTS, A_BATCH).astype(np.int64)
+               for i in range(len(a_batches))]
+
+    def j3_call(m, b):
+        return m(b[0], b[1], slot=b[2])
+
+    j3_in = [(p, t, to(c)) for (p, t), c in zip(a_batches, cohorts)]
+    keyed = pt.Keyed(pt.Accuracy(device=device), num_slots=J3_COHORTS, dist_sync_on_step=True)
+    early = {}
+    values, ms, calls, peaks = _j_steps(device, keyed, j3_in, j3_call,
+                                        on_step=lambda i: early.update(_j_counts(keyed)) if i == J_CPU_STEPS - 1
+                                        else None)
+    fresh = pt.Keyed(pt.Accuracy(device=device), num_slots=J3_COHORTS, dist_sync_on_step=True)
+    profile = _j_profile(lambda: j3_call(fresh, j3_in[0])) if device.type == "cuda" else None
+    out["J3"] = {"counts": _j_counts(keyed), "early": early, "cohorts": cohorts, "epoch": _j_host(keyed.compute()),
+                 "host": [(_j_host(p), _j_host(t)) for p, t in a_batches],
+                 "summary": _j_summary(f"J3 Keyed(Accuracy), {J3_COHORTS:,} cohorts", ms, calls, peaks, profile,
+                                       _j_bytes(keyed))}
+    del keyed, fresh
+
+    # J4: HeavyHitters(AUROC(approx="sketch")) over a 1,000,000-key space
+    keys = _j_keys()
+
+    def j4_call(m, b):
+        return m.update(b[0], b[1], key=b[2])
+
+    j4_in = [(j1[0], j1[1], k) for j1, k in zip(j1_in, keys)]
+    hh = pt.HeavyHitters(pt.AUROC(approx="sketch", device=device), num_hot_slots=J4_HOT, tail=J4_TAIL)
+    early, host_ms = {}, []
+    real_resolve = type(hh._table).resolve
+
+    def timed_resolve(table, batch_keys):
+        t0 = time.perf_counter()
+        try:
+            return real_resolve(table, batch_keys)
+        finally:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+
+    hh._table.resolve = timed_resolve.__get__(hh._table)
+    values, ms, calls, peaks = _j_steps(device, hh, j4_in, j4_call,
+                                        on_step=lambda i: early.update(_j_counts(hh)) if i == J_CPU_STEPS - 1
+                                        else None)
+    del hh._table.resolve
+    with _CountCollectives() as epoch_calls:
+        hot_values = hh.compute()
+        _sync(device)
+    stream_keys = np.concatenate(keys)
+    seen = np.unique(stream_keys)
+    tail_keys = [int(k) for k in np.random.RandomState(56).choice(seen[~np.isin(seen, list(hh._table.keys()))],
+                                                                    J4_TAIL_CHECKS, replace=False)]
+    records = hh.compute_heavy_hitters()
+    fresh = pt.HeavyHitters(pt.AUROC(approx="sketch", device=device), num_hot_slots=J4_HOT, tail=J4_TAIL)
+    profile = _j_profile(lambda: j4_call(fresh, j4_in[0])) if device.type == "cuda" else None
+    del fresh
+    out["J4"] = {"counts": _j_counts(hh), "early": early, "keys": keys, "table": hh._table.state(),
+                 "records": [{k: _j_host(v) for k, v in r.items()} for r in records],
+                 "tail_reads": {k: hh.tail_estimate(k) for k in tail_keys}, "bound": hh.tail_overcount_bound(),
+                 "tail_mass": hh.tail_mass(), "hot_values": _j_host(hot_values), "epoch_calls": dict(epoch_calls),
+                 "host_ms": statistics.median(host_ms),
+                 "summary": _j_summary(f"J4 HeavyHitters(AUROC sketch), {J4_HOT} hot, {J4_TAIL} tail", ms, calls, peaks,
+                                       profile, _j_bytes(hh))}
+    del hh
+
+    # J5: BootStrapper(AUROC(approx="sketch"), 100 copies)
+    def j5_call(m, b):
+        return m(b[0], b[1])
+
+    boot = pt.BootStrapper(pt.AUROC(approx="sketch", device=device), num_bootstraps=J5_COPIES, seed=0, raw=True)
+    values, ms, calls, peaks = _j_steps(device, boot, j1_in[:J5_STEPS], j5_call)
+    final = boot.compute()
+    fresh = pt.BootStrapper(pt.AUROC(approx="sketch", device=device), num_bootstraps=J5_COPIES, seed=0)
+    profile = _j_profile(lambda: j5_call(fresh, j1_in[0])) if device.type == "cuda" else None
+    del fresh
+    out["J5"] = {"counts": _j_host(boot._stacked["hist"].counts), "mode": boot._mode, "final": _j_host(final),
+                 "step_values": [_j_host(v) for v in values],
+                 "summary": _j_summary(f"J5 BootStrapper(AUROC sketch), {J5_COPIES} copies", ms, calls, peaks, profile,
+                                       _j_bytes(boot._template) * J5_COPIES)}
+    del boot
+
+    out["J6"] = _run_path_j6(device, a_batches)
+    out["J7"] = _run_path_j7(device, j1_in)
+    return out
+
+
+def _run_path_j6(device, a_batches):
+    """J6: Running, MetricTracker, ClasswiseWrapper, MinMaxMetric and MultioutputWrapper on the card, each against
+    the arithmetic of its unwrapped parts on the card."""
+    import torch
+
+    import metrics_tpu_torch as pt
+
+    res = {}
+    pairs = _to(device, _e1_batches())
+
+    def run(label, metric, make, batches, call):
+        """Step ``metric`` over ``batches``; profile a step of a fresh ``make()``."""
+        values, ms, calls, peaks = _j_steps(device, metric, batches, call)
+        fresh = make()
+        profile = _j_profile(lambda: call(fresh, batches[0]), calls=2) if device.type == "cuda" else None
+        return values, _j_summary(label, ms, calls, peaks, profile, 0)
+
+    # Running(MeanSquaredError(), window=5) over E1's pairs: the MSE of the last 5 steps
+    make = (lambda: pt.Running(pt.MeanSquaredError(device=device), window=J6_WINDOW))
+    values, summary = run("J6 Running(MSE, window=5)", make(), make, pairs, lambda m, b: m(*b))
+    window = pt.MeanSquaredError(device=device)
+    for p, t in pairs[-J6_WINDOW:]:
+        window.update(p, t)
+    res["running"] = {"got": float(values[-1]), "want": float(window.compute()), "summary": summary}
+
+    # MetricTracker(Accuracy()) over 3 epochs of path A's batches
+    def make_tracker():
+        fresh = pt.MetricTracker(pt.Accuracy(device=device))
+        fresh.increment()
+        return fresh
+
+    tracker = pt.MetricTracker(pt.Accuracy(device=device))
+    epochs = np.array_split(np.arange(len(a_batches)), J6_EPOCHS)
+    want, ms_all = [], []
+    for epoch in epochs:
+        tracker.increment()
+        plain = pt.Accuracy(device=device)
+        values, summary = run("J6 MetricTracker(Accuracy)", tracker, make_tracker, [a_batches[i] for i in epoch],
+                              lambda m, b: m(*b))
+        for i in epoch:
+            plain.update(*a_batches[i])
+        want.append(float(plain.compute()))
+        ms_all.append(summary)
+    best, step = tracker.best_metric(return_step=True)
+    res["tracker"] = {"got": _j_host(tracker.compute_all()).tolist(), "want": want, "best": (float(best), step),
+                      "summary": ms_all[-1]}
+
+    # ClasswiseWrapper(Precision(num_classes=1000, average=None))
+    make = (lambda: pt.ClasswiseWrapper(pt.Precision(num_classes=A_CLASSES, average=None, device=device)))
+    classwise = make()
+    plain = pt.Precision(num_classes=A_CLASSES, average=None, device=device)
+    values, summary = run(f"J6 ClasswiseWrapper(Precision, {A_CLASSES:,} classes)", classwise, make, a_batches,
+                          lambda m, b: m(*b))
+    for b in a_batches:
+        plain.update(*b)
+    got = classwise.compute()
+    want = _j_host(plain.compute())
+    res["classwise"] = {"equal": len(got) == A_CLASSES and all(
+        float(got[f"precision_{i}"]) == float(want[i]) or (np.isnan(float(got[f"precision_{i}"])) and np.isnan(want[i]))
+        for i in range(A_CLASSES)), "summary": summary}
+
+    # MinMaxMetric(Accuracy()): the extrema of the batch values
+    make = (lambda: pt.MinMaxMetric(pt.Accuracy(device=device)))
+    minmax = make()
+    plain = pt.Accuracy(device=device)
+    values, summary = run("J6 MinMaxMetric(Accuracy)", minmax, make, a_batches, lambda m, b: m(*b))
+    batch_values = [float(plain(*b)) for b in a_batches]
+    final = minmax.compute()
+    res["minmax"] = {"got": {k: float(v) for k, v in final.items()},
+                     "want": {"min": min(batch_values + [float(plain.compute())]),
+                              "max": max(batch_values + [float(plain.compute())]), "raw": float(plain.compute())},
+                     "summary": summary}
+
+    # MultioutputWrapper(R2Score(), num_outputs=8) over 1,048,576 x 8 rows from E1's pairs
+    rows = [(torch.cat([pairs[2 * i][0], pairs[2 * i + 1][0]]).view(J6_ROWS, J6_OUTPUTS),
+             torch.cat([pairs[2 * i][1], pairs[2 * i + 1][1]]).view(J6_ROWS, J6_OUTPUTS)) for i in range(len(pairs) // 2)]
+    make = (lambda: pt.MultioutputWrapper(pt.R2Score(device=device), num_outputs=J6_OUTPUTS))
+    multi = make()
+    values, summary = run("J6 MultioutputWrapper(R2, 8 outputs)", multi, make, rows, lambda m, b: m(*b))
+    cols = [pt.R2Score(device=device) for _ in range(J6_OUTPUTS)]
+    for p, t in rows:
+        for j, col in enumerate(cols):
+            col.update(p[:, j], t[:, j])
+    res["multioutput"] = {"got": _j_host(multi.compute()).tolist(), "want": [float(c.compute()) for c in cols],
+                          "summary": summary}
+    return res
+
+
+def _run_path_j7(device, j1_in):
+    """J7: ``AUROC(approx="sketch").pure()``: init, an update a step, a sync over the group, compute; against the
+    stateful metric fed the same steps."""
+    import torch.distributed as dist
+
+    import metrics_tpu_torch as pt
+
+    metric = pt.AUROC(approx="sketch", device=device)
+    pure = metric.pure()
+    stateful = pt.AUROC(approx="sketch", device=device)
+
+    state = pure.init()
+    ms, calls = [], []
+    for b in j1_in:
+        with _CountCollectives() as coll:
+            t0 = time.perf_counter()
+            state = pure.update(state, b[0], b[1])
+            synced = pure.sync(state, dist.group.WORLD)
+            value = pure.compute(synced)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append(dict(coll))
+        stateful.update(b[0], b[1])
+    profile = None
+    if device.type == "cuda":
+        profile = _j_profile(lambda: pure.compute(pure.sync(pure.update(pure.init(), j1_in[0][0], j1_in[0][1]),
+                                                            dist.group.WORLD)))
+    return {"value": float(value), "counts": _j_host(synced["hist"].counts), "stateful": float(stateful.compute()),
+            "stateful_counts": _j_host(stateful.hist.counts), "own": int(metric.hist.counts.sum()),
+            "summary": _j_summary("J7 AUROC(sketch).pure(): update, sync, compute", ms, calls, [], profile,
+                                  _j_bytes(stateful))}
+
+
+# ---- path J's oracles: numpy bincounts and float64 curve math, no code shared with the port
+def _j_hist_oracle(batches, steps, num_slots):
+    """(K, 2, B) int64 counts of (tenant, label row, bin) over the first ``steps`` batches, ids out of range left out."""
+    total = np.zeros(num_slots * 2 * G_BINS, dtype=np.int64)
+    for b in batches[:steps]:
+        keep = (b["slots"] >= 0) & (b["slots"] < num_slots)
+        flat = (b["slots"] * 2 + np.where(b["labels"] == 1, 0, 1)) * G_BINS + _g_linear_bins(b["scores"], G_BINS)
+        total += np.bincount(flat[keep], minlength=total.size)
+    return total.reshape(num_slots, 2, G_BINS)
+
+
+def _j_quantile_oracle(batches, steps, num_slots):
+    from metrics_tpu_torch.parallel.qsketch import QSKETCH_ALPHA, QSKETCH_MAX_VALUE, QSKETCH_MIN_VALUE
+
+    grid = (QSKETCH_ALPHA, QSKETCH_MIN_VALUE, QSKETCH_MAX_VALUE)
+    nb = 2 * max(int(np.ceil(np.log(grid[2] / grid[1]) / np.log((1 + grid[0]) / (1 - grid[0])))), 1) + 3
+    total = np.zeros(num_slots * nb, dtype=np.int64)
+    for b in batches[:steps]:
+        keep = (b["slots"] >= 0) & (b["slots"] < num_slots)
+        total += np.bincount((b["slots"] * nb + _g_q_buckets(b["latency"], *grid))[keep], minlength=total.size)
+    return total.reshape(num_slots, nb)
+
+
+def _j_cpu_keyed(make, names, batches, steps, num_slots):
+    """The port's CPU run of a Keyed part over the first ``steps`` batches (``update``; no process group)."""
+    import torch
+
+    import metrics_tpu_torch as pt
+
+    keyed = pt.Keyed(make("cpu"), num_slots=num_slots)
+    for b in batches[:steps]:
+        keyed.update(*(torch.from_numpy(b[n]) for n in names), slot=torch.from_numpy(b["slots"]))
+    return _j_counts(keyed)
+
+
+def _j_states_equal(label, got, want):
+    for name, value in want.items():
+        if not np.array_equal(got[name], value):
+            raise AssertionError(f"{label}: state {name!r} differs ({np.count_nonzero(got[name] != value)} cells)")
+
+
+def check_path_j(result):
+    import metrics_tpu_torch as pt
+
+    data, unseen = result["data"], result["unseen"]
+    timings = {}
+    print(f"[13] path J: the pure view, the keyed slab and the wrappers; {J_STEPS} steps of {J_N:,} samples over"
+          f" {J_SLOTS:,} tenants (Zipf 1.1, {J_UNSEEN} never drawn, {J_OUT} ids out of range a step)")
+
+    # J1
+    run = result["J1"]
+    timings["J1"] = run["summary"]
+    oracle = _j_hist_oracle(data, J_STEPS, J_SLOTS)
+    _j_states_equal("J1 slab counts against the numpy (tenant, label, bin) oracle", run["counts"],
+                    {"hist": oracle, "keyed_rows": oracle.sum((1, 2))})
+    cpu = _j_cpu_keyed(lambda d: pt.AUROC(approx="sketch", device=d), ("scores", "labels"), data, J_CPU_STEPS,
+                       J_SLOTS)
+    _j_states_equal(f"J1 card against the CPU run after {J_CPU_STEPS} steps", run["early"], cpu)
+    _check(True, f"J1: slab counts equal the numpy oracle ({int(oracle.sum()):,} samples in {J_STEPS} steps) and the"
+                 f" CPU run after {J_CPU_STEPS} steps, bit for bit")
+    occupied = oracle.sum((1, 2)) > 0
+    auroc = _g_curves(oracle)[0]
+    err = _g_close("J1 per-tenant epoch AUROC against float64", run["epoch"][occupied], auroc[occupied], RTOL_J)
+    empty = np.flatnonzero(~occupied)
+    _check(np.isnan(run["epoch"][~occupied]).all() and set(unseen.tolist()) <= set(empty.tolist()),
+           f"J1: {occupied.sum():,} tenants within rtol {RTOL_J} of float64 AUROC from the oracle counts (max rel"
+           f" {err:.2e}); the {len(empty)} empty tenants (the {J_UNSEEN} never drawn among them) are NaN")
+    last = _j_hist_oracle(data[-1:], 1, J_SLOTS)
+    last_occ = last.sum((1, 2)) > 0
+    _g_close("J1 last step's batch values", run["last_value"][last_occ], _g_curves(last)[0][last_occ], RTOL_J)
+    for k, value in run["slot_reads"].items():
+        if not np.array_equal(np.asarray(value), run["epoch"][k], equal_nan=True):
+            raise AssertionError(f"J1 compute(slot={k}) = {value} but compute()[{k}] = {run['epoch'][k]}")
+    _check(run["dropped"] == J_STEPS * J_OUT, f"J1: slab_dropped_samples = {run['dropped']} ({J_OUT} a step);"
+                                               f" compute(slot=k) equals compute()[k] for {len(run['slot_reads'])}"
+                                               f" tenants; the last step's batch values match float64 too")
+    per_step = {tuple(sorted(c.items())) for c in run["calls"]}
+    _check(per_step == {tuple(sorted(run["unkeyed_calls"].items()))} and run["unkeyed_calls"]["all_reduce"] == 1,
+           f"J1: every step's collective calls equal the unkeyed AUROC(approx='sketch')'s ({run['unkeyed_calls']}),"
+           f" at K = {J_SLOTS:,}; the epoch compute {run['epoch_calls']}, {run['epoch_ms']:.1f} ms")
+
+    # J2
+    run = result["J2"]
+    timings["J2"] = run["summary"]
+    oracle = _j_quantile_oracle(data, J_STEPS, J_SLOTS)
+    _j_states_equal("J2 slab counts against the numpy float64 searchsorted oracle", run["counts"],
+                    {"qsketch": oracle, "keyed_rows": oracle.sum(1)})
+    cpu = _j_cpu_keyed(lambda d: pt.Quantile(q=0.99, device=d), ("latency",), data, J_CPU_STEPS, J_SLOTS)
+    _j_states_equal(f"J2 card against the CPU run after {J_CPU_STEPS} steps", run["early"], cpu)
+    for t, (alone, keyed_value, n) in run["alone"].items():
+        if alone != keyed_value:
+            raise AssertionError(f"J2 tenant {t} ({n} samples): keyed p99 {keyed_value} but alone {alone}")
+    heaviest = max(run["alone"].values(), key=lambda a: a[2])
+    _check(np.isnan(run["epoch"][oracle.sum(1) == 0]).all(),
+           f"J2: counts equal the float64-exact bucket oracle and the CPU run; each of {len(run['alone'])} tenants'"
+           f" p99 equals an unkeyed Quantile fed only its values (the heaviest: {heaviest[2]:,} samples, p99"
+           f" {heaviest[0]:.6f} s); empty tenants NaN")
+
+    # J3
+    run = result["J3"]
+    timings["J3"] = run["summary"]
+    correct = np.zeros(J3_COHORTS, np.int64)
+    total = np.zeros(J3_COHORTS, np.int64)
+    for (p, t), c in zip(run["host"], run["cohorts"]):
+        correct += np.bincount(c, weights=(np.argmax(p, 1) == t), minlength=J3_COHORTS).astype(np.int64)
+        total += np.bincount(c, minlength=J3_COHORTS)
+    _j_states_equal("J3 per-cohort correct / total against numpy", run["counts"],
+                    {"correct": correct, "total": total, "keyed_rows": total})
+    batches = [{"probs": p, "classes": t, "slots": c} for (p, t), c in zip(run["host"], run["cohorts"])]
+    cpu = _j_cpu_keyed(lambda d: pt.Accuracy(device=d), ("probs", "classes"), batches, J_CPU_STEPS, J3_COHORTS)
+    _j_states_equal(f"J3 card against the CPU run after {J_CPU_STEPS} steps", run["early"], cpu)
+    _g_close("J3 per-cohort accuracy", run["epoch"], correct / total, RTOL_J_FLOAT)
+    _check(True, f"J3: per-cohort correct / total equal numpy exactly over {correct.sum():,} correct of"
+                 f" {total.sum():,}; the vmapped classification input format ran on the card; CPU run equal")
+
+    # J4
+    run = result["J4"]
+    timings["J4"] = {**run["summary"], "host_resolve_ms": run["host_ms"]}
+    keys = np.concatenate(run["keys"])
+    scores = np.concatenate([b["scores"] for b in data])
+    labels = np.concatenate([b["labels"] for b in data])
+    flat = np.where(labels == 1, 0, 1) * G_BINS + _g_linear_bins(scores, G_BINS)
+    stream = np.bincount(flat, minlength=2 * G_BINS).reshape(2, G_BINS)
+    counts = run["counts"]
+    _check(int(counts["hh_rows"].sum()) + run["tail_mass"] == len(keys)
+           and np.array_equal(counts["hist"].sum(0) + counts["hist_tail"][0].sum(0), stream)
+           and int(counts["hh_tail_rows"][0].sum()) == run["tail_mass"],
+           f"J4: hot + tail totals equal the stream's bit for bit ({int(counts['hh_rows'].sum()):,} hot +"
+           f" {run['tail_mass']:,} tail samples; the (2, {G_BINS}) histogram too)")
+    table = run["table"]
+    exact = 0
+    for key, slot, residue in zip(table["keys"], table["slots"], table["residue"]):
+        if residue:
+            continue
+        mine = keys == key
+        want = np.bincount(flat[mine], minlength=2 * G_BINS).reshape(2, G_BINS)
+        if not np.array_equal(counts["hist"][slot], want) or counts["hh_rows"][slot] != mine.sum():
+            raise AssertionError(f"J4 exact key {key} (slot {slot}): hot counts differ from the oracle")
+        exact += 1
+    over = []
+    for key, read in run["tail_reads"].items():
+        truth = int((keys == key).sum())
+        if not truth <= read["count"] <= truth + run["bound"]:
+            raise AssertionError(f"J4 tail key {key}: estimate {read['count']} outside [{truth}, {truth} +"
+                                 f" {run['bound']:.1f}]")
+        over.append(read["count"] - truth)
+    _check(exact > 0, f"J4: {exact} of {len(table['keys'])} hot keys are exact and equal the oracle; {len(over)} tail"
+                      f" reads within [truth, truth + {run['bound']:.1f}] (overcount max {max(over)}); promotions"
+                      f" {int(table['promotions'])}, demotions {int(table['demotions'])}; host resolve"
+                      f" {run['host_ms']:.1f} ms/step")
+    cpu = pt.HeavyHitters(pt.AUROC(approx="sketch", device="cpu"), num_hot_slots=J4_HOT, tail=J4_TAIL)
+    import torch
+
+    for b, k in zip(data[:J_CPU_STEPS], run["keys"][:J_CPU_STEPS]):
+        cpu.update(torch.from_numpy(b["scores"]), torch.from_numpy(b["labels"]), key=k.tolist())
+    _j_states_equal(f"J4 card against the CPU run after {J_CPU_STEPS} steps", run["early"], _j_counts(cpu))
+    _check(run["epoch_calls"]["all_reduce"] == 1, f"J4: card equals the CPU run bit for bit after {J_CPU_STEPS} steps"
+                                                  f" (the same host table); the synced compute makes"
+                                                  f" {run['epoch_calls']}")
+
+    # J5
+    run = result["J5"]
+    timings["J5"] = run["summary"]
+    rs = np.random.RandomState(0)
+    oracle = np.zeros(J5_COPIES * 2 * G_BINS, np.int64)
+    for b in data[:J5_STEPS]:
+        idx = rs.randint(0, J_N, (J5_COPIES, J_N))
+        flat = np.where(b["labels"] == 1, 0, 1) * G_BINS + _g_linear_bins(b["scores"], G_BINS)
+        oracle += np.bincount((np.arange(J5_COPIES)[:, None] * 2 * G_BINS + flat[idx]).reshape(-1),
+                              minlength=oracle.size)
+    oracle = oracle.reshape(J5_COPIES, 2, G_BINS)
+    if not np.array_equal(run["counts"], oracle):
+        raise AssertionError("J5: per-copy counts differ from the numpy oracle on the same RandomState draws")
+    copies = _g_curves(oracle)[0]
+    _g_close("J5 raw copies", run["final"]["raw"], copies, RTOL_J)
+    _g_close("J5 mean", run["final"]["mean"], copies.mean(), RTOL_J)
+    _g_close("J5 std", run["final"]["std"], copies.std(ddof=1), RTOL_J)
+    _check(run["mode"] == "stacked", f"J5: {J5_COPIES} copies' counts equal a numpy oracle on the same RandomState"
+                                     f" draws bit for bit; mean {run['final']['mean']:.6f} / std"
+                                     f" {run['final']['std']:.6f} within rtol {RTOL_J} of float64 (stacked mode)")
+
+    # J6
+    run = result["J6"]
+    timings["J6"] = {k: v["summary"] for k, v in run.items()}
+    _g_close("J6 Running", run["running"]["got"], run["running"]["want"], RTOL_J_FLOAT)
+    best = int(np.argmax(run["tracker"]["want"]))
+    _check(run["tracker"]["got"] == run["tracker"]["want"] and run["tracker"]["best"][1] == best,
+           f"J6: Running(MSE, 5) equals the MSE of the last {J6_WINDOW} steps; MetricTracker's {J6_EPOCHS} epochs"
+           f" equal plain Accuracy per epoch exactly, best step {best}")
+    mm = run["minmax"]
+    _check(run["classwise"]["equal"] and mm["got"] == mm["want"],
+           f"J6: ClasswiseWrapper's {A_CLASSES} values equal Precision(average=None) exactly; MinMaxMetric {mm['got']}"
+           f" equals the extrema of the plain batch values")
+    _g_close("J6 MultioutputWrapper", run["multioutput"]["got"], run["multioutput"]["want"], RTOL_J_FLOAT)
+    _check(True, f"J6: MultioutputWrapper(R2, {J6_OUTPUTS}) over {J6_ROWS:,} rows equals 8 R2Score columns"
+                 f" (rtol {RTOL_J_FLOAT})")
+
+    # J7
+    run = result["J7"]
+    timings["J7"] = run["summary"]
+    _check(np.array_equal(run["counts"], run["stateful_counts"]) and run["value"] == run["stateful"]
+           and run["own"] == 0,
+           f"J7: pure init / update / sync / compute equals the stateful metric bit for bit ({run['value']:.6f});"
+           f" the metric's own state untouched")
+
+    for part in ("J1", "J2"):
+        peak = timings[part]["peak_bytes"]
+        if peak is not None:
+            _check(peak <= J_PEAK_BUDGET, f"{part}: peak {peak / 2**20:.1f} MiB a step above what was live (the"
+                                          f" state and the batches), within {J_PEAK_BUDGET >> 20} MiB")
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -4092,6 +4766,9 @@ def main() -> int:
                             "I4_rouge": paths["i"]["I4"]["rouge_epoch_ms"], "I4_squad": paths["i"]["I4"]["squad_epoch_ms"]},
         "path_i1_peak_bytes": paths["i"]["I1"]["peak_bytes"],
         "path_i1_bound_ms": paths["i"]["I1"]["bound_ms"],
+        "path_j_ms_per_step": {k: v["ms_per_step"] for k, v in paths["j"].items() if k != "J6"},
+        "path_j6_ms_per_step": {k: v["ms_per_step"] for k, v in paths["j"]["J6"].items()},
+        "path_j_peak_bytes": {k: paths["j"][k]["peak_bytes"] for k in ("J1", "J2")},
     }
 
     print(json.dumps({"kernels": [kernel]}))

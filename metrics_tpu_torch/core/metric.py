@@ -21,6 +21,13 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
   NamedTuple holding one int64 ``counts`` tensor (``metric.hist.counts``),
   materialized at every reset, moved by ``.to()``, merged by addition and
   synced in the sum bucket;
+* the keyed slab: ``add_state`` takes a ``SlabSpec`` (``dist_reduce_fx`` its
+  ``slab_sync_reduce``), a ``(K, *item)`` tensor or a sketch with a leading K
+  axis, merged and synced in the sum / min / max buckets like any state;
+* the pure view: ``pure()`` returns a :class:`PureMetric` of ``init_state`` /
+  ``update_state`` / ``compute_from_state`` / ``merge_states`` /
+  ``sync_state``, functions of an explicit state dict that leave the metric's
+  own state as it is;
 * ``reset``, and ``state_dict`` / ``load_state_dict`` in the JAX package's key
   layout (host numpy values, a buffer as ``{"data", "count"}``, a sketch as
   ``{"sketch_counts"}``, plus ``_count_bound`` and ``_epoch_watermark``), so a
@@ -31,7 +38,8 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
 * metric arithmetic: every operator overload builds a
   :class:`CompositionalMetric`.
 
-PyTorch runs eagerly, so there is no jit, no ``pure()`` and no scan here.
+PyTorch runs eagerly, so there is no jit and no scan here, and the pure
+view's functions run eagerly too.
 States live on ``self.device``: ``cuda`` unless the caller passes
 ``device="cpu"`` (see ``utils/device.py``). Count states are int64.
 """
@@ -49,6 +57,7 @@ from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_append, buffe
 from metrics_tpu_torch.parallel.cms import CMSSpec, cms_init
 from metrics_tpu_torch.parallel.qsketch import QSketchSpec, qsketch_init
 from metrics_tpu_torch.parallel.sketch import SketchSpec, is_sketch, sketch_init
+from metrics_tpu_torch.parallel.slab import SlabSpec, slab_init, slab_sync_reduce
 from metrics_tpu_torch.parallel.sync import (
     ReduceFx,
     all_reduce_state,
@@ -81,12 +90,14 @@ _SPEC_MATERIALIZERS = {
     SketchSpec: sketch_init,
     CMSSpec: cms_init,
     QSketchSpec: qsketch_init,
+    SlabSpec: slab_init,
 }
 
 # the spec kinds whose states are sum-mergeable by construction (merge is
 # elementwise add, sync the sum bucket): add_state requires dist_reduce_fx="sum".
-# All of them so far; the keyed slab, when ported, is materialized but not one.
-_SUM_MERGEABLE_SPECS = tuple(_SPEC_MATERIALIZERS)
+# The keyed slab is materialized but not one: its reduction is the spec's own.
+_SUM_MERGEABLE_SPECS = (SketchSpec, CMSSpec, QSketchSpec)
+_SPECS = tuple(_SPEC_MATERIALIZERS)
 
 
 def materialize_state_spec(spec: Any, device: Optional[torch.device] = None) -> Any:
@@ -106,6 +117,22 @@ class _Unfingerprintable(Exception):
     pass
 
 
+class PureMetric(NamedTuple):
+    """The pure view of a metric: functions of an explicit state dict.
+
+    ``init() -> state``, ``update(state, *args, **kwargs) -> state``,
+    ``compute(state) -> value``, ``merge(a, b) -> state`` and ``sync(state,
+    group=None) -> state`` (the bucketed ``all_reduce`` / gather plane over
+    ``group``, default the metric's ``process_group``). None of them reads or
+    writes the metric's own state."""
+
+    init: Callable[[], Dict[str, Any]]
+    update: Callable[..., Dict[str, Any]]
+    compute: Callable[[Dict[str, Any]], Any]
+    merge: Callable[[Dict[str, Any], Dict[str, Any]], Dict[str, Any]]
+    sync: Callable[..., Dict[str, Any]]
+
+
 def _fingerprint_value(v: Any) -> Any:
     if v is None or isinstance(v, (bool, int, float, str, bytes)):
         return v
@@ -120,6 +147,10 @@ def _fingerprint_value(v: Any) -> Any:
         return ("qsketchspec", v.kind, v.shape, str(v.dtype), v.alpha, v.min_value, v.max_value)
     if isinstance(v, CMSSpec):
         return ("cmsspec", v.depth, v.width, v.item_shape, str(v.dtype), v.seed)
+    if isinstance(v, SlabSpec):
+        # two slab metrics share a compute-group key only on equal (kind, K, row
+        # schema, reduce, fill template)
+        return ("slabspec", v.kind, v.num_slots, v.item_shape, str(v.dtype), v.reduce, v.fill)
     if isinstance(v, (list, tuple)):
         return (type(v).__name__, tuple(_fingerprint_value(x) for x in v))
     if isinstance(v, dict):
@@ -222,7 +253,29 @@ class Metric(nn.Module, ABC):
         ``QSketchSpec`` (quantile sketch) or a ``CMSSpec`` (count-min): the
         state is then a zero-count sketch of the spec's shape, merged by
         elementwise addition and synced in the sum bucket, so
-        ``dist_reduce_fx`` must be ``"sum"``."""
+        ``dist_reduce_fx`` must be ``"sum"``.
+
+        Or a ``SlabSpec`` (the keyed slab, ``parallel/slab.py``): the state is
+        a ``(K, *item_shape)`` tensor, or a sketch whose counts grow a leading
+        K axis, and ``dist_reduce_fx`` must be the spec's
+        ``slab_sync_reduce`` (``sum`` for sum / mean / sketch slabs, ``min`` /
+        ``max`` as they are), so merge and sync ride the existing buckets."""
+        if isinstance(default, SlabSpec):
+            expected = slab_sync_reduce(default.reduce)
+            if dist_reduce_fx != expected:
+                raise ValueError(
+                    f"a {default.reduce!r}-kind slab state syncs through the {expected!r} bucket plane;"
+                    f" declare it with dist_reduce_fx={expected!r} (got {dist_reduce_fx!r})"
+                )
+            self._defaults[name] = default
+            self._persistent[name] = persistent
+            self._reductions[name] = expected
+            value = slab_init(default, self.device)
+            if isinstance(value, Tensor):
+                self.register_buffer(name, value, persistent=False)  # moved by .to() like any tensor state
+            else:
+                setattr(self, name, value)
+            return
         if isinstance(default, _SUM_MERGEABLE_SPECS):
             if dist_reduce_fx != "sum":
                 raise ValueError(
@@ -273,7 +326,7 @@ class Metric(nn.Module, ABC):
         current.append(value)
 
     def _materialize(self, default: Any) -> Any:
-        if isinstance(default, _SUM_MERGEABLE_SPECS):
+        if isinstance(default, _SPECS):
             return materialize_state_spec(default, self.device)
         if isinstance(default, _BufferSpec):
             return buffer_init(default.capacity, default.item_shape, default.dtype, device=self.device)
@@ -303,6 +356,34 @@ class Metric(nn.Module, ABC):
     def merge_states(self, a: State, b: State) -> State:
         """Pairwise merge of two state dicts (the one-delta forward's fold)."""
         return {name: merge_values(self._reductions[name], a[name], b[name]) for name in self._defaults}
+
+    # -------------------------------------------------------------- pure view
+    def update_state(self, state: State, *args: Any, **kwargs: Any) -> State:
+        """Pure update: the state after ``update(*args, **kwargs)`` from ``state``."""
+        return self._run_update_on_state(state, *args, **kwargs)
+
+    def compute_from_state(self, state: State) -> Any:
+        """Pure compute on an explicit state dict (no sync, no cache)."""
+        saved = self._current_state()
+        self._set_state(state)
+        try:
+            return self._compute_impl()
+        finally:
+            self._set_state(saved)
+
+    def sync_state(self, state: State, group: Optional[Any] = None) -> State:
+        """The cross-rank reduction of ``state`` over ``group`` (default: the
+        metric's ``process_group``) through the bucketed plane: one
+        ``all_reduce`` per (dtype, op) bucket, one gather for the list, stack
+        and buffer states. The metric's own state is left as it is."""
+        return all_reduce_state(state, self._reductions, group=self.process_group if group is None else group,
+                                layouts=self._cat_layouts, device=self.device)
+
+    def pure(self) -> PureMetric:
+        """The pure view: ``init`` / ``update`` / ``compute`` / ``merge`` /
+        ``sync`` over explicit state dicts."""
+        return PureMetric(init=self.init_state, update=self.update_state, compute=self.compute_from_state,
+                          merge=self.merge_states, sync=self.sync_state)
 
     # --------------------------------------------------------------- forward
     @property
@@ -426,9 +507,17 @@ class Metric(nn.Module, ABC):
             finally:
                 if synced:
                     self._set_state(cache)
+            # after the sync restore: state written here persists
+            self._after_compute(self._computed)
             return self._computed
 
         return wrapped_func
+
+    def _after_compute(self, result: Any) -> None:
+        """Hook run by the wrapped ``compute`` after the sync restore. State
+        written inside ``compute`` itself is discarded when a synced compute
+        restores the local state; writes from this hook persist. Default:
+        nothing."""
 
     def _host_warnings(self) -> None:
         """Warnings from host-side bookkeeping (``_count_bound``) at every epoch

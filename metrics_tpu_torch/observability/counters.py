@@ -1,0 +1,157 @@
+"""Counters of the keyed wrappers: dropped samples, destroyed history and slot gauges.
+
+Counterpart of the slab part of ``metrics_tpu/observability/counters.py``:
+the :class:`CollectiveCounters` registry, ``enable`` / ``disable`` /
+``is_enabled`` / ``reset`` / ``snapshot``, and the four record functions the
+wrappers call. What is counted:
+
+- **slab_dropped_samples**: samples whose slot id fell outside a slab's
+  ``[0, K)`` range and were dropped by the scatter (``parallel/slab.py``).
+  Recorded even while counting is disabled: a sample that vanished must leave
+  a trail. The drop is decided from the ids on the host, a read the update
+  pays anyway.
+- **evicted_mass_dropped**: samples whose accumulated history a
+  ``Keyed(lru=True)`` eviction destroyed (the recycled slot's row count when
+  it was zeroed). Recorded even while counting is disabled. ``HeavyHitters``
+  folds a demoted row into its count-min tail instead, and leaves it zero.
+- **slab_slots**: per-wrapper gauges ``{label: {"slots": K, "occupied": n,
+  "evictions": e}}``, refreshed after every keyed update while counting is
+  enabled.
+- **heavy_hitters**: per-wrapper gauges ``{label: {"hot_slots",
+  "hot_occupied", "promotions", "demotions", "tail_mass", "tail_bound"}}``
+  from the space-saving table's host bookkeeping (no device read), refreshed
+  after every update while counting is enabled.
+
+The collective, cache, fault and serving counters of the JAX package's
+registry are not ported yet; ``snapshot()`` carries the four keys above, with
+the JAX package's names and layouts. Counting is off by default; all mutation
+happens under one lock.
+"""
+import threading
+from typing import Any, Dict
+
+__all__ = [
+    "COUNTERS",
+    "CollectiveCounters",
+    "disable",
+    "enable",
+    "is_enabled",
+    "record_evicted_mass",
+    "record_heavy_hitters",
+    "record_slab_dropped",
+    "record_slab_slots",
+    "reset",
+    "snapshot",
+]
+
+
+class CollectiveCounters:
+    """Process-wide counters; ``enabled`` is the gate of the gauges."""
+
+    __slots__ = ("enabled", "slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters", "_lock")
+
+    def __init__(self) -> None:
+        self.enabled = False
+        self._lock = threading.Lock()
+        self._zero()
+
+    def _zero(self) -> None:
+        self.slab_dropped_samples = 0
+        self.evicted_mass_dropped = 0
+        self.slab_slots: Dict[str, Dict[str, int]] = {}
+        self.heavy_hitters: Dict[str, Dict[str, Any]] = {}
+
+    def record_slab_dropped(self, n: int = 1) -> None:
+        """Count samples dropped by a slab scatter's out-of-range slot ids."""
+        if n < 0:
+            raise ValueError(f"dropped-sample count must be >= 0, got {n}")
+        with self._lock:
+            self.slab_dropped_samples += int(n)
+
+    def record_evicted_mass(self, n: int) -> None:
+        """Count samples whose history an LRU slot eviction destroyed."""
+        if n < 0:
+            raise ValueError(f"evicted-mass count must be >= 0, got {n}")
+        with self._lock:
+            self.evicted_mass_dropped += int(n)
+
+    def record_slab_slots(self, label: str, slots: int, occupied: int, evictions: int) -> None:
+        """Refresh one keyed slab's slot gauges (latest value wins)."""
+        with self._lock:
+            self.slab_slots[label] = {"slots": int(slots), "occupied": int(occupied), "evictions": int(evictions)}
+
+    def record_heavy_hitters(self, label: str, hot_slots: int, hot_occupied: int, promotions: int,
+                             demotions: int, tail_mass: int, tail_bound: float) -> None:
+        """Refresh one heavy-hitter wrapper's tier gauges (latest value wins)."""
+        with self._lock:
+            self.heavy_hitters[label] = {
+                "hot_slots": int(hot_slots),
+                "hot_occupied": int(hot_occupied),
+                "promotions": int(promotions),
+                "demotions": int(demotions),
+                "tail_mass": int(tail_mass),
+                "tail_bound": float(tail_bound),
+            }
+
+    def snapshot(self) -> Dict[str, Any]:
+        """A JSON-ready copy of every counter."""
+        with self._lock:
+            return {
+                "slab_dropped_samples": self.slab_dropped_samples,
+                "evicted_mass_dropped": self.evicted_mass_dropped,
+                "slab_slots": {k: dict(v) for k, v in sorted(self.slab_slots.items())},
+                "heavy_hitters": {k: dict(v) for k, v in sorted(self.heavy_hitters.items())},
+            }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._zero()
+
+
+COUNTERS = CollectiveCounters()
+
+
+# evidence of lost samples records unconditionally: a sample that vanished
+# from a slab, or a tenant's destroyed history, must leave a trail even when
+# counting is off
+def record_slab_dropped(n: int = 1) -> None:
+    COUNTERS.record_slab_dropped(n)
+
+
+def record_evicted_mass(n: int) -> None:
+    COUNTERS.record_evicted_mass(n)
+
+
+# the gauges are telemetry and share the enabled gate
+def record_slab_slots(label: str, slots: int, occupied: int, evictions: int) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_slab_slots(label, slots, occupied, evictions)
+
+
+def record_heavy_hitters(label: str, hot_slots: int, hot_occupied: int, promotions: int, demotions: int,
+                         tail_mass: int, tail_bound: float) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_heavy_hitters(label, hot_slots, hot_occupied, promotions, demotions, tail_mass, tail_bound)
+
+
+def enable() -> None:
+    COUNTERS.enabled = True
+
+
+def disable() -> None:
+    COUNTERS.enabled = False
+
+
+def is_enabled() -> bool:
+    return COUNTERS.enabled
+
+
+def reset() -> None:
+    COUNTERS.reset()
+
+
+def snapshot(reset_after: bool = False) -> Dict[str, Any]:
+    out = COUNTERS.snapshot()
+    if reset_after:
+        COUNTERS.reset()
+    return out

@@ -15,7 +15,7 @@ a fixed-grid histogram instead, whose size does not grow with the traffic:
   midrank Pearson correlation over the joint counts and Kendall's tau-b comes
   from 2-D suffix sums: scipy's tie-averaged statistics of the binned data.
 
-The update is one ``index_add`` of ones into a flat view (row-major flat
+The update is one ``scatter_add`` of ones into a flat view (row-major flat
 index): exact integer atomics on the card, so its counts equal the CPU's bit
 for bit; it never reads the host. Merge is elementwise integer addition and
 the sync rides the int64 sum bucket of ``parallel/sync.py``. Counts are int64

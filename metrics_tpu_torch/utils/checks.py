@@ -4,7 +4,9 @@ Counterpart of ``metrics_tpu/utils/checks.py``. The input case
 (:func:`_resolve_case`) depends only on ndim/dtype; the value checks
 (:func:`_validate_values`) are evaluated on the device as boolean flags and
 read back to the host ONCE per call, so an update costs one device-to-host
-read for validation however many checks apply. Inside a
+read for validation however many checks apply. Inside ``torch.func.vmap`` (the
+per-sample deltas of the keyed wrappers) the value checks are skipped, as the
+JAX package skips them on arrays that are not concrete. Inside a
 :func:`shared_input_format` window (opened by ``MetricCollection`` around one
 step) the formatted result is memoized, so a collection formats and
 validates each batch once across all its compute groups.
@@ -17,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.utils.data import select_topk, to_onehot
+from metrics_tpu_torch.utils.data import is_batched, select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
 
 
@@ -266,7 +268,9 @@ def _check_classification_inputs(
             " based on the C dimension of `preds`."
         )
     _validate_static(case, implied_classes, _is_float(preds), threshold, num_classes, is_multiclass, top_k)
-    _validate_values(preds, target, case, implied_classes, threshold, num_classes, is_multiclass, sum_atol=sum_atol)
+    if not (is_batched(preds) or is_batched(target)):  # a batched view cannot be read back to the host
+        _validate_values(preds, target, case, implied_classes, threshold, num_classes, is_multiclass,
+                         sum_atol=sum_atol)
     return case
 
 

@@ -55,6 +55,15 @@ def upcast_accum(x: Tensor) -> Tensor:
     return x
 
 
+def is_batched(x: Any) -> bool:
+    """Whether ``x`` is a tensor seen inside ``torch.func.vmap`` (a batched
+    view whose values cannot be read back to the host). The counterpart of the
+    JAX package's ``is_concrete`` test, inverted: value checks run only on
+    tensors that are not batched, as the JAX package's run only on concrete
+    arrays (never under ``jax.vmap`` / ``jit``)."""
+    return isinstance(x, Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(x)
+
+
 def accum_int_dtype() -> torch.dtype:
     """Dtype of count-accumulator states: int64, always (the JAX package's
     counterpart picks int32 unless ``jax_enable_x64`` is set)."""
@@ -96,11 +105,13 @@ def full_fp32_matmul() -> Iterator[None]:
 def scatter_count(counts: Tensor, flat_index: Tensor, keep: Tensor) -> Tensor:
     """``counts`` plus one at ``flat_index`` (into its row-major flat view) for
     every sample whose ``keep`` is set, a new tensor: the update of the sketch
-    states. One ``index_add`` with the kept flags as the increments, so a
+    states. One ``scatter_add`` with the kept flags as the increments, so a
     dropped sample adds zero at a valid cell and the shapes never depend on the
     data (no host read). Integer atomics are exact in any order, so the card's
-    counts equal the CPU's."""
-    flat = counts.reshape(-1).index_add(0, flat_index.reshape(-1), keep.reshape(-1).to(counts.dtype))
+    counts equal the CPU's. ``scatter_add`` rather than ``index_add``:
+    ``torch.func.vmap`` (the keyed wrappers' per-sample deltas) batches it into
+    one kernel, where its rule for ``index_add`` launches one a sample."""
+    flat = counts.reshape(-1).scatter_add(0, flat_index.reshape(-1), keep.reshape(-1).to(counts.dtype))
     return flat.view(counts.shape)
 
 
@@ -152,8 +163,9 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     else:
         # a stable descending sort keeps the lower index first among ties
         idx = torch.sort(prob_tensor, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
-    out = torch.zeros_like(prob_tensor, dtype=torch.int32)
-    return out.scatter_(dim, idx, 1)
+    # the out-of-place scatter: ``torch.func.vmap`` batches it (the keyed
+    # wrappers' per-sample deltas), where the in-place form loops per sample
+    return torch.zeros_like(prob_tensor, dtype=torch.int32).scatter(dim, idx, 1)
 
 
 def to_categorical(tensor: Tensor, argmax_dim: int = 1) -> Tensor:
