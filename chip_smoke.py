@@ -194,7 +194,26 @@ Phases, in order; each raises on failure and none is caught:
    bit for bit. Prints each part's ms per step, device share, synchronizing calls of a profiled step, collective
    calls a step and peak bytes above the state (J1 and J2 within 1 GiB). Path J runs no hand-written kernel: the
    JAX package's slab scatter is ``jax.ops.segment_sum``, its per-sample deltas ``jax.vmap``, never Pallas.
-14. The ``kernels`` JSON line, then the device JSON as the last line.
+14. Path K, the windowed plane and the rest of ``MetricCollection``, in the same group with ``device="cuda"``
+   (nothing caught), at a serving deployment's size (the JAX package's ``bench.py`` windowed scenarios), event times
+   from seeded numpy. W1 ``Windowed(AUROC(approx="sketch"), window_s=60, num_windows=4, allowed_lateness_s=180)`` with
+   ``dist_sync_on_step``: 24 steps of 65,536 events, the clock 20 s a step (8 windows, 5 rolls), 5% of the events late
+   by U(0, 150) s, 0.5% by U(250, 400) s (always dropped). W2 sliding windows (``window_s=6, slide_s=2,
+   num_windows=6, allowed_lateness_s=4``) over ``Accuracy``: 20 steps, the clock 1 s a step, 3% late within 4 s, 0.5%
+   10-30 s late; every event scatters into 3 ring rows. W3 ``Windowed(MeanSquaredError(), decay_half_life_s=30)``: 20
+   steps, 2% out of order. W4 ``Windowed(Keyed(Accuracy(), 1,000))`` over path A's batches, Zipf cohorts, 16 ids out
+   of range a step. Every resident window's counts (W4: per cohort) equal a numpy oracle router written here from
+   the open rule, bit for bit, and so do the drop, late and ``slab_dropped_samples`` counts; each window's
+   ``compute_window`` equals an unwindowed metric fed exactly that window's events on the card; the first 2 steps
+   equal the port's CPU run; W1 makes one ``all_reduce`` a step, as the unwindowed metric. W3 is within rtol 1e-5 of
+   a float64 closed form. W5: two ranks of one ``WatermarkAgreement(deadline_s=0.5)``, one 90 s behind: windows stay
+   open for it, late verdicts follow the agreed clock, a silent rank is excluded past the deadline (``wm_stragglers``
+   + 1) and rejoins. W6: the main collection's pure view (2 entries; one ``all_reduce`` a step, one a (dtype, op)
+   bucket), ``forward_batched`` over path A's 20 stacked batches (path A's per-step values bit for bit) and
+   ``clone(prefix="b_")``. Prints each part's ms per step, a profiled step's device ms, share, operations and
+   synchronizing calls, collective calls and peak bytes above the state. Path K runs no hand-written kernel: the
+   JAX package's routing is host numpy and its scatters ``segment_sum``, never Pallas.
+15. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -573,6 +592,9 @@ def phase_paths():
         path_h = run_path_h(dev)
         path_i = run_path_i(dev)
         path_j = run_path_j(dev, a_batches)
+        t0 = time.perf_counter()
+        path_k = run_path_k(dev, a_batches)
+        path_k_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
 
@@ -601,9 +623,13 @@ def phase_paths():
     t0 = time.perf_counter()
     j_timings = check_path_j(path_j)
     print(f"    path J checks on the host: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k_timings = check_path_k(path_k)
+    print(f"    path K: {path_k_s:.1f} s on the card, {time.perf_counter() - t0:.1f} s of checks on the host")
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
-            "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings, "j": j_timings}
+            "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings, "j": j_timings,
+            "k": k_timings}
 
 
 def _profile_step(collection, batch):
@@ -4706,6 +4732,574 @@ def check_path_j(result):
     return timings
 
 
+# ---- path K: the windowed plane and the rest of MetricCollection
+K_N = 65_536  # events a step of W1-W3: the keyed scenario's batch
+W1_STEPS, W1_WINDOW_S, W1_WINDOWS, W1_LATENESS, W1_ADVANCE = 24, 60.0, 4, 180.0, 20.0
+W2_STEPS, W2_WINDOW_S, W2_SLIDE_S, W2_WINDOWS, W2_LATENESS, W2_ADVANCE = 20, 6.0, 2.0, 6, 4.0, 1.0
+W3_STEPS, W3_HALF_LIFE, W3_ADVANCE, W3_OUT_OF_ORDER = 20, 30.0, 5.0, 0.02
+W4_WINDOW_S, W4_WINDOWS, W4_LATENESS, W4_ADVANCE, W4_OUT = 60.0, 4, 120.0, 20.0, 16
+W5_DEADLINE, W5_LAG, W5_WINDOWS, W5_N = 0.5, 90.0, 8, 8_192
+K_CPU_STEPS = 2  # steps of W1-W4 the CPU run repeats; the numpy oracles hold every step
+RTOL_K = 1e-6  # float32 values of equal counts against the card's unwindowed metric: the same math
+# W3 against float64: a float32 pairwise sum of 65,536 weighted squared errors a step, rescaled and added 20 times,
+# each term a float32 product of a float32 weight; the JAX test's 1e-6 holds 3 samples
+RTOL_W3 = 1e-5
+
+
+def _k_events(seed, steps, advance, late, drop, n=None):
+    """Per step ``n`` (default ``K_N``) event times ``step * advance + U(0, advance)``, a share ``late[0]`` of them moved back by
+    ``U(*late[1])`` seconds and a share ``drop[0]`` by ``U(*drop[1])``, with 30% positive labels and scores
+    sigmoid(N(0, 1) + 1.5 label)."""
+    rng = np.random.RandomState(seed)
+    n = K_N if n is None else n
+    out = []
+    for step in range(steps):
+        t = step * advance + rng.uniform(0, advance, n)
+        u = rng.random_sample(n)
+        back = np.zeros(n)
+        back[u < late[0]] = rng.uniform(*late[1], int((u < late[0]).sum()))
+        far = (u >= late[0]) & (u < late[0] + drop[0])
+        back[far] = rng.uniform(*drop[1], int(far.sum()))
+        labels = (rng.random_sample(n) < 0.3).astype(np.int64)
+        scores = (1 / (1 + np.exp(-(rng.standard_normal(n) + 1.5 * labels)))).astype(np.float32)
+        out.append({"t": t - back, "scores": scores, "labels": labels})
+    return out
+
+
+def _k_oracle_route(times, window_s, stride, num_windows, lateness):
+    """The open rule written out, independent of the port's router: per step and covering row j (window
+    ``floor(t / stride) - j``, j < window_s / stride), the window and whether the event lands there: iff
+    ``window * stride + window_s + lateness > watermark`` and ``window > head - num_windows`` (its ring slot still
+    holds it), with the watermark the running max of every event so far and the head ``floor(watermark /
+    stride)``. Returns the per-step rows, the final head, the dropped events (no row took them), the late
+    routings (taken where ``window * stride + window_s <= watermark``) and the oldest window that took one."""
+    overlap = int(round(window_s / stride))
+    wm, steps, dropped, late, origin = None, [], 0, 0, None
+    for t in times:
+        wm = float(t.max()) if wm is None else max(wm, float(t.max()))
+        head = int(np.floor(wm / stride))
+        newest = np.floor_divide(t, stride).astype(np.int64)
+        rows, taken = [], np.zeros(t.size, bool)
+        for j in range(overlap):
+            window = newest - j
+            ok = (window * stride + window_s + lateness > wm) & (window > head - num_windows)
+            late += int((ok & (window * stride + window_s <= wm)).sum())
+            if ok.any():
+                origin = int(window[ok].min()) if origin is None else min(origin, int(window[ok].min()))
+            rows.append((window, ok))
+            taken |= ok
+        dropped += int((~taken).sum())
+        steps.append(rows)
+    return steps, head, dropped, late, origin
+
+
+def _k_per_window(steps, resident, fold):
+    """{window: fold(step index, mask of the step's events the window took)} over the resident windows, every
+    covering row of every step."""
+    out = {}
+    for w in resident:
+        parts = []
+        for i, rows in enumerate(steps):
+            mask = np.zeros(rows[0][0].size, bool)
+            for window, ok in rows:
+                mask |= ok & (window == w)
+            parts.append((i, mask))
+        out[w] = fold(parts)
+    return out
+
+
+def run_path_k(device, a_batches):
+    """Path K inside the caller's process group: W1-W6 on the card, timed and profiled, with what the checks need
+    on the host."""
+    import torch
+    import torch.distributed as dist
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.observability import counters
+
+    out = {}
+    to = (lambda x: torch.from_numpy(x).to(device))
+
+    def early_hook(metric, store):
+        return lambda i: store.update(_j_counts(metric)) if i == K_CPU_STEPS - 1 else None
+
+    # W1: Windowed(AUROC(approx="sketch")), the tumbling ring, dist_sync_on_step
+    data = _k_events(61, W1_STEPS, W1_ADVANCE, (0.05, (0.0, 150.0)), (0.005, (250.0, 400.0)))
+    inputs = [(to(b["scores"]), to(b["labels"]), b["t"]) for b in data]
+
+    def w1_make():
+        return pt.Windowed(pt.AUROC(approx="sketch", device=device), window_s=W1_WINDOW_S, num_windows=W1_WINDOWS,
+                           allowed_lateness_s=W1_LATENESS, dist_sync_on_step=True)
+
+    def w1_call(m, b):
+        return m(b[0], b[1], event_time=b[2])
+
+    w1, early = w1_make(), {}
+    counters.reset()
+    values, ms, calls, peaks = _j_steps(device, w1, inputs, w1_call, on_step=early_hook(w1, early))
+    slab_dropped = counters.snapshot()["slab_dropped_samples"]
+    unwindowed = pt.AUROC(approx="sketch", device=device, dist_sync_on_step=True)
+    with _CountCollectives() as unwindowed_calls:
+        unwindowed(inputs[0][0], inputs[0][1])
+    _sync(device)
+    resident = w1.resident_windows()
+    per_window = {w: float(w1.compute_window(w)) for w in resident}
+    with _CountCollectives() as epoch_calls:
+        epoch = _j_host(w1.compute())
+    # every resident window against an unwindowed metric on the card fed exactly the events the oracle gives it
+    steps, *_ = _k_oracle_route([b["t"] for b in data], W1_WINDOW_S, W1_WINDOW_S, W1_WINDOWS, W1_LATENESS)
+    alone = {}
+    for w, parts in _k_per_window(steps, resident, lambda parts: parts).items():
+        fresh = pt.AUROC(approx="sketch", device=device)
+        for i, mask in parts:
+            if mask.any():
+                fresh.update(to(data[i]["scores"][mask]), to(data[i]["labels"][mask]))
+        alone[w] = float(fresh.compute())
+    everything = pt.AUROC(approx="sketch", device=device)
+    for w in resident:
+        everything.hist.counts.add_(w1.hist.counts[w % W1_WINDOWS])  # the resident slabs merged by hand
+    fresh = w1_make()
+    profile = _j_profile(lambda: w1_call(fresh, inputs[0])) if device.type == "cuda" else None
+    del fresh
+    out["W1"] = {"data": data, "counts": _j_counts(w1), "early": early, "resident": resident,
+                 "per_window": per_window, "alone": alone, "epoch": float(epoch),
+                 "merged_by_hand": float(everything.compute()), "dropped": w1.dropped_samples, "late": w1.late_samples,
+                 "slab_dropped": slab_dropped, "calls": calls, "unwindowed_calls": dict(unwindowed_calls),
+                 "epoch_calls": dict(epoch_calls), "head": w1.head_window,
+                 "summary": _j_summary(f"W1 Windowed(AUROC sketch), {W1_WINDOWS} x {W1_WINDOW_S:.0f} s tumbling",
+                                       ms, calls, peaks, profile, _j_bytes(w1))}
+    del w1, values, inputs
+
+    # W2: Windowed(Accuracy()), sliding windows of 6 s every 2 s
+    data = _k_events(62, W2_STEPS, W2_ADVANCE, (0.03, (0.0, 4.0)), (0.005, (10.0, 30.0)))
+    inputs = [(to(b["scores"]), to(b["labels"]), b["t"]) for b in data]
+
+    def w2_make():
+        return pt.Windowed(pt.Accuracy(device=device), window_s=W2_WINDOW_S, slide_s=W2_SLIDE_S,
+                           num_windows=W2_WINDOWS, allowed_lateness_s=W2_LATENESS, dist_sync_on_step=True)
+
+    w2, early = w2_make(), {}
+    counters.reset()
+    values, ms, calls, peaks = _j_steps(device, w2, inputs, w1_call, on_step=early_hook(w2, early))
+    slab_dropped = counters.snapshot()["slab_dropped_samples"]
+    resident = w2.resident_windows()
+    steps, *_ = _k_oracle_route([b["t"] for b in data], W2_WINDOW_S, W2_SLIDE_S, W2_WINDOWS, W2_LATENESS)
+    alone = {}
+    for w, parts in _k_per_window(steps, resident, lambda parts: parts).items():
+        fresh = pt.Accuracy(device=device)
+        for i, mask in parts:
+            if mask.any():
+                fresh.update(to(data[i]["scores"][mask]), to(data[i]["labels"][mask]))
+        alone[w] = float(fresh.compute())
+    fresh = w2_make()
+    profile = _j_profile(lambda: w1_call(fresh, inputs[0])) if device.type == "cuda" else None
+    del fresh
+    out["W2"] = {"data": data, "counts": _j_counts(w2), "early": early, "resident": resident,
+                 "per_window": {w: float(w2.compute_window(w)) for w in resident}, "alone": alone,
+                 "epoch": float(w2.compute()), "head": w2.head_window, "dropped": w2.dropped_samples,
+                 "late": w2.late_samples, "slab_dropped": slab_dropped,
+                 "summary": _j_summary(f"W2 Windowed(Accuracy), {W2_WINDOW_S:.0f} s sliding every {W2_SLIDE_S:.0f} s",
+                                       ms, calls, peaks, profile, _j_bytes(w2))}
+    del w2, values, inputs
+
+    # W3: Windowed(MeanSquaredError(), decay_half_life_s=30): an exponentially weighted MSE
+    rng = np.random.RandomState(63)
+    data = []
+    for step, b in enumerate(_k_events(64, W3_STEPS, W3_ADVANCE, (W3_OUT_OF_ORDER, (0.0, 60.0)), (0.0, (0.0, 0.0)))):
+        target = np.exp(rng.standard_normal(K_N)).astype(np.float32)
+        preds = (target * np.exp(0.1 * rng.standard_normal(K_N))).astype(np.float32)
+        data.append({"t": b["t"], "preds": preds, "target": target})
+    inputs = [(to(b["preds"]), to(b["target"]), b["t"]) for b in data]
+
+    def w3_make():
+        return pt.Windowed(pt.MeanSquaredError(device=device), decay_half_life_s=W3_HALF_LIFE, dist_sync_on_step=True)
+
+    w3, early = w3_make(), {}
+    values, ms, calls, peaks = _j_steps(device, w3, inputs, w1_call, on_step=early_hook(w3, early))
+    fresh = w3_make()
+    profile = _j_profile(lambda: w1_call(fresh, inputs[0])) if device.type == "cuda" else None
+    del fresh
+    out["W3"] = {"data": data, "counts": _j_counts(w3), "early": early, "value": float(w3.compute()),
+                 "watermark": w3.watermark, "dropped": w3.dropped_samples,
+                 "summary": _j_summary(f"W3 Windowed(MSE), decay half-life {W3_HALF_LIFE:.0f} s", ms, calls, peaks,
+                                       profile, _j_bytes(w3))}
+    del w3, values, inputs
+
+    # W4: Windowed(Keyed(Accuracy(), 1,000)): per-cohort windows over path A's batches
+    rng = np.random.RandomState(65)
+    perm = rng.permutation(J3_COHORTS)
+    cdf = np.cumsum(np.arange(1, J3_COHORTS + 1, dtype=np.float64) ** -1.1)
+    cdf /= cdf[-1]
+    host = [(_j_host(p), _j_host(t)) for p, t in a_batches]
+    data = []
+    for step in range(len(a_batches)):
+        cohorts = perm[np.minimum(np.searchsorted(cdf, rng.random_sample(A_BATCH), side="right"), J3_COHORTS - 1)]
+        bad = rng.choice(A_BATCH, W4_OUT, replace=False)
+        cohorts[bad[: W4_OUT // 2]], cohorts[bad[W4_OUT // 2:]] = -1, J3_COHORTS
+        t = step * W4_ADVANCE + rng.uniform(0, W4_ADVANCE, A_BATCH)
+        u = rng.random_sample(A_BATCH)
+        t[u < 0.05] -= rng.uniform(0.0, 100.0, int((u < 0.05).sum()))
+        far = (u >= 0.05) & (u < 0.055)
+        t[far] -= rng.uniform(250.0, 400.0, int(far.sum()))
+        data.append({"t": t, "cohorts": cohorts.astype(np.int64), "classes": host[step][0].argmax(1),
+                     "target": host[step][1], "probs": host[step][0] if step < K_CPU_STEPS else None})
+    inputs = [(p, t, to(d["cohorts"]), d["t"]) for (p, t), d in zip(a_batches, data)]
+
+    def w4_make():
+        return pt.Windowed(pt.Keyed(pt.Accuracy(device=device), J3_COHORTS), window_s=W4_WINDOW_S,
+                           num_windows=W4_WINDOWS, allowed_lateness_s=W4_LATENESS, dist_sync_on_step=True)
+
+    def w4_call(m, b):
+        return m(b[0], b[1], slot=b[2], event_time=b[3])
+
+    w4, early = w4_make(), {}
+    counters.reset()
+    values, ms, calls, peaks = _j_steps(device, w4, inputs, w4_call, on_step=early_hook(w4, early))
+    slab_dropped = counters.snapshot()["slab_dropped_samples"]
+    resident = w4.resident_windows()
+    steps, *_ = _k_oracle_route([d["t"] for d in data], W4_WINDOW_S, W4_WINDOW_S, W4_WINDOWS, W4_LATENESS)
+    alone = {}
+    for w, parts in _k_per_window(steps, resident, lambda parts: parts).items():
+        fresh = pt.Keyed(pt.Accuracy(device=device), J3_COHORTS)
+        for i, mask in parts:
+            if mask.any():
+                keep = to(np.flatnonzero(mask))
+                fresh.update(a_batches[i][0].index_select(0, keep), a_batches[i][1].index_select(0, keep),
+                             slot=to(data[i]["cohorts"][mask]))
+        alone[w] = _j_host(fresh.compute())
+    fresh = w4_make()
+    profile = _j_profile(lambda: w4_call(fresh, inputs[0])) if device.type == "cuda" else None
+    del fresh
+    out["W4"] = {"data": data, "counts": _j_counts(w4), "early": early, "resident": resident,
+                 "per_window": {w: _j_host(w4.compute_window(w)) for w in resident}, "alone": alone,
+                 "head": w4.head_window, "dropped": w4.dropped_samples, "late": w4.late_samples,
+                 "slab_dropped": slab_dropped,
+                 "summary": _j_summary(f"W4 Windowed(Keyed(Accuracy), {J3_COHORTS:,} cohorts)", ms, calls, peaks,
+                                       profile, _j_bytes(w4))}
+    del w4, values
+
+    out["W5"] = _run_path_w5(device)
+    out["W6"] = _run_path_w6(device, a_batches)
+    return out
+
+
+def _run_path_w5(device):
+    """W5: two in-process participants of one ``WatermarkAgreement(deadline_s=0.5)``, one 90 s behind, each a
+    ``Windowed(AUROC(approx="sketch"))`` ring of 8 windows (a ring sized for the skew, so the windows the agreed
+    clock holds open are still resident) fed batches of 8,192 events."""
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.observability import counters
+
+    data = _k_events(66, 3, W1_ADVANCE, (0.0, (0.0, 0.0)), (0.0, (0.0, 0.0)), n=W5_N)
+    to = (lambda x: torch.from_numpy(x).to(device))
+    agreement = pt.WatermarkAgreement(deadline_s=W5_DEADLINE, label="path K W5")
+
+    def ring(**kw):
+        return pt.Windowed(pt.AUROC(approx="sketch", device=device), window_s=W1_WINDOW_S, num_windows=W5_WINDOWS,
+                           allowed_lateness_s=W1_LATENESS, **kw)
+
+    fast, slow, lone = ring(agreement=agreement, rank="fast"), ring(agreement=agreement, rank="slow"), ring()
+    base = 300.0  # the fast rank's clock: window 5 of 60 s
+    b = data[0]
+    fast.update(to(b["scores"]), to(b["labels"]), event_time=base + b["t"])
+    lone.update(to(b["scores"]), to(b["labels"]), event_time=base + b["t"])
+    slow.update(to(b["scores"]), to(b["labels"]), event_time=base - W5_LAG + b["t"])
+    res = {"fast_wm": fast.watermark, "slow_wm": slow.watermark, "agreed": agreement.agreed()}
+    # events 200-220 s behind the fast rank's clock: closed by its local clock (window end + 180 s of lateness
+    # lies behind it), open by the agreed one, and their ring slots still hold their windows
+    b = data[1]
+    late_t = fast.watermark - 220.0 + b["t"] % 20.0
+    before = (fast.dropped_samples, fast.late_samples, int(fast.windowed_rows.sum()))
+    fast.update(to(b["scores"]), to(b["labels"]), event_time=late_t)
+    lone.update(to(b["scores"]), to(b["labels"]), event_time=late_t)
+    res["held_open"] = {"fast_dropped": fast.dropped_samples - before[0], "fast_late": fast.late_samples - before[1],
+                        "fast_rows": int(fast.windowed_rows.sum()) - before[2], "lone_dropped": lone.dropped_samples,
+                        "n": int(late_t.size), "agreed": agreement.agreed(), "close": fast.close_watermark,
+                        "local_closed": int((np.floor_divide(late_t, W1_WINDOW_S) * W1_WINDOW_S + W1_WINDOW_S
+                                             + W1_LATENESS <= fast.watermark).sum()),
+                        "agreed_late": int((np.floor_divide(late_t, W1_WINDOW_S) * W1_WINDOW_S + W1_WINDOW_S
+                                            <= agreement.agreed()).sum())}
+    # the slow rank stops reporting: past the deadline it is excluded, and it rejoins on its next advance
+    stragglers = counters.snapshot()["wm_stragglers"]
+    time.sleep(W5_DEADLINE + 0.2)
+    b = data[2]
+    fast.update(to(b["scores"]), to(b["labels"]), event_time=fast.watermark + 1.0 + b["t"] % 5.0)
+    res["excluded"] = {"agreed": agreement.agreed(), "fast_wm": fast.watermark, "excluded": agreement.excluded(),
+                       "degraded": fast.agreement_degraded, "stragglers": counters.snapshot()["wm_stragglers"]
+                       - stragglers}
+    slow.update(to(b["scores"]), to(b["labels"]), event_time=slow.watermark + 10.0 + b["t"] % 5.0)
+    res["rejoined"] = {"agreed": agreement.agreed(), "slow_wm": slow.watermark, "excluded": agreement.excluded(),
+                       "degraded": fast.agreement_degraded}
+    return res
+
+
+def _run_path_w6(device, a_batches):
+    """W6: the main collection's pure view over path A's batches (init, update, sync over the group, compute a
+    step), ``forward_batched`` over the stacked batches and ``clone(prefix="b_")``."""
+    import torch
+    import torch.distributed as dist
+
+    col = _main_collection(device, dist_sync_on_step=True)
+    pure = col.pure()
+    state = pure.init()
+    entries = sorted(state)
+    ms, calls, values = [], [], []
+    for p, t in a_batches:
+        with _CountCollectives() as coll:
+            t0 = time.perf_counter()
+            state = pure.update(state, p, t)
+            synced = pure.sync(state, dist.group.WORLD)
+            values.append({k: float(v) for k, v in pure.compute(synced).items()})
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append(dict(coll))
+    buckets = {((v.counts if hasattr(v, "counts") else v).dtype, col[k]._reductions[n])
+               for k, s in state.items() for n, v in s.items()}
+    stepper = _main_collection(device, dist_sync_on_step=True)
+    step_values = []
+    with _CountCollectives() as step_calls:
+        step_values.append({k: float(v) for k, v in stepper(*a_batches[0]).items()})
+    for p, t in a_batches[1:]:
+        step_values.append({k: float(v) for k, v in stepper(p, t).items()})
+    epoch_loop = {k: float(v) for k, v in stepper.compute().items()}
+    profile = None
+    if device.type == "cuda":
+        profile = _j_profile(lambda: pure.compute(pure.sync(pure.update(pure.init(), *a_batches[0]),
+                                                            dist.group.WORLD)))
+    preds = torch.stack([p for p, _ in a_batches])
+    target = torch.stack([t for _, t in a_batches])
+    batched = _main_collection(device, dist_sync_on_step=True)
+    _sync(device)
+    t0 = time.perf_counter()
+    stacked = batched.forward_batched(preds, target)
+    _sync(device)
+    batched_ms = (time.perf_counter() - t0) * 1e3
+    stacked_bytes = preds.numel() * preds.element_size() + target.numel() * target.element_size()
+    del preds, target
+    clone = batched.clone(prefix="b_")
+    return {"entries": entries, "values": values, "calls": calls, "buckets": len(buckets),
+            "step_calls": dict(step_calls), "step_values": step_values, "epoch_loop": epoch_loop,
+            "pure_state_own": int(col["F1"].tp.sum()),
+            "batched": {k: _j_host(v).tolist() for k, v in stacked.items()}, "batched_ms": batched_ms,
+            "stacked_bytes": stacked_bytes, "batched_epoch": {k: float(v) for k, v in batched.compute().items()},
+            "clone_epoch": {k: float(v) for k, v in clone.compute().items()},
+            "summary": _j_summary("W6 MetricCollection.pure(): update, sync, compute", ms, calls, [], profile, 0)}
+
+
+def _k_cpu_run(make, call_inputs, steps):
+    """The port's CPU run of a part over its first ``steps`` batches (``update``; no process group)."""
+    metric = make("cpu")
+    for args, kw in call_inputs[:steps]:
+        metric.update(*args, **kw)
+    return _j_counts(metric)
+
+
+def _k_states_equal(label, got, want, rtol=None):
+    for name, value in want.items():
+        if rtol is not None and np.issubdtype(np.asarray(value).dtype, np.floating):
+            np.testing.assert_allclose(got[name], value, rtol=rtol, atol=0, err_msg=f"{label}: {name}")
+        elif not np.array_equal(got[name], value):
+            raise AssertionError(f"{label}: state {name!r} differs ({np.count_nonzero(got[name] != value)} cells)")
+
+
+def check_path_k(result):
+    import torch
+
+    import metrics_tpu_torch as pt
+
+    timings = {}
+    print(f"[14] path K: the windowed plane (W1-W5) and the rest of MetricCollection (W6); {K_N:,} events a step")
+
+    # W1: counts per window against the oracle router and a numpy bincount
+    run = result["W1"]
+    timings["W1"] = run["summary"]
+    data = run["data"]
+    steps, head, dropped, late, origin = _k_oracle_route([b["t"] for b in data], W1_WINDOW_S, W1_WINDOW_S,
+                                                         W1_WINDOWS, W1_LATENESS)
+    resident = tuple(range(max(origin, head - W1_WINDOWS + 1), head + 1))
+
+    def hist_fold(parts):
+        total = np.zeros(2 * G_BINS, np.int64)
+        for i, mask in parts:
+            b = data[i]
+            flat = np.where(b["labels"] == 1, 0, 1) * G_BINS + _g_linear_bins(b["scores"], G_BINS)
+            total += np.bincount(flat[mask], minlength=2 * G_BINS)
+        return total.reshape(2, G_BINS)
+
+    oracle = _k_per_window(steps, resident, hist_fold)
+    _check(run["resident"] == resident and run["head"] == head and len(resident) == W1_WINDOWS,
+           f"W1: resident windows {resident} (head {head}) equal the oracle router's")
+    for w in resident:
+        slot = w % W1_WINDOWS
+        if not (np.array_equal(run["counts"]["hist"][slot], oracle[w])
+                and run["counts"]["windowed_rows"][slot] == oracle[w].sum()):
+            raise AssertionError(f"W1 window {w} (slot {slot}): counts differ from the oracle")
+    _check(run["dropped"] == dropped and run["late"] == late and run["slab_dropped"] == dropped,
+           f"W1: every window's (label, bin) counts equal the oracle's bit for bit; dropped {dropped:,}"
+           f" (slab_dropped_samples {run['slab_dropped']:,}), late routings {late:,}")
+    cpu = _k_cpu_run(lambda d: pt.Windowed(pt.AUROC(approx="sketch", device=d), window_s=W1_WINDOW_S,
+                                           num_windows=W1_WINDOWS, allowed_lateness_s=W1_LATENESS),
+                     [((torch.from_numpy(b["scores"]), torch.from_numpy(b["labels"])), {"event_time": b["t"]})
+                      for b in data], K_CPU_STEPS)
+    _k_states_equal(f"W1 card against the CPU run after {K_CPU_STEPS} steps", run["early"], cpu)
+    for w in resident:
+        if run["per_window"][w] != run["alone"][w]:
+            raise AssertionError(f"W1 compute_window({w}) = {run['per_window'][w]} but the window's events alone"
+                                 f" give {run['alone'][w]}")
+    per_step = {tuple(sorted(c.items())) for c in run["calls"]}
+    _check(per_step == {tuple(sorted(run["unwindowed_calls"].items()))} and run["unwindowed_calls"]["all_reduce"] == 1
+           and run["epoch"] == run["merged_by_hand"],
+           f"W1: compute_window(w) of each resident window equals AUROC(approx='sketch') fed that window's events on"
+           f" the card; compute() {run['epoch']:.6f} equals the resident slabs merged; card equal to the CPU run;"
+           f" every step's collective calls equal the unwindowed metric's ({run['unwindowed_calls']})")
+
+    # W2: sliding windows, every covering row
+    run = result["W2"]
+    timings["W2"] = run["summary"]
+    data = run["data"]
+    steps, head, dropped, late, origin = _k_oracle_route([b["t"] for b in data], W2_WINDOW_S, W2_SLIDE_S,
+                                                         W2_WINDOWS, W2_LATENESS)
+    resident = tuple(range(max(origin, head - W2_WINDOWS + 1), head + 1))
+
+    def acc_fold(parts):
+        correct = total = 0
+        for i, mask in parts:
+            b = data[i]
+            correct += int(((b["scores"] >= np.float32(0.5)).astype(np.int64) == b["labels"])[mask].sum())
+            total += int(mask.sum())
+        return correct, total
+
+    oracle = _k_per_window(steps, resident, acc_fold)
+    _check(run["resident"] == resident and run["head"] == head, f"W2: resident windows {resident} equal the oracle's")
+    for w in resident:
+        slot = w % W2_WINDOWS
+        got = (int(run["counts"]["correct"][slot]), int(run["counts"]["total"][slot]),
+               int(run["counts"]["windowed_rows"][slot]))
+        if got != (*oracle[w], oracle[w][1]):
+            raise AssertionError(f"W2 window {w}: correct / total / rows {got}, oracle {oracle[w]}")
+        if run["per_window"][w] != run["alone"][w]:
+            raise AssertionError(f"W2 compute_window({w}) {run['per_window'][w]} != alone {run['alone'][w]}")
+    rows = sum(int(ok.sum()) for s in steps for _, ok in s)
+    cpu = _k_cpu_run(lambda d: pt.Windowed(pt.Accuracy(device=d), window_s=W2_WINDOW_S, slide_s=W2_SLIDE_S,
+                                           num_windows=W2_WINDOWS, allowed_lateness_s=W2_LATENESS),
+                     [((torch.from_numpy(b["scores"]), torch.from_numpy(b["labels"])), {"event_time": b["t"]})
+                      for b in data], K_CPU_STEPS)
+    _k_states_equal(f"W2 card against the CPU run after {K_CPU_STEPS} steps", run["early"], cpu)
+    _check(run["dropped"] == dropped and run["late"] == late and run["slab_dropped"] == dropped
+           and run["epoch"] == run["per_window"][head - 2],
+           f"W2: every window's correct / total equal the oracle's over its {W2_WINDOWS} ring rows ({rows:,} routings"
+           f" of {W2_STEPS * K_N:,} events, {rows / (W2_STEPS * K_N):.3f} a event); dropped {dropped:,}, late"
+           f" {late:,}; compute() is the trailing full-span window {head - 2}; CPU run equal")
+
+    # W3: the decayed MSE against float64
+    run = result["W3"]
+    timings["W3"] = run["summary"]
+    data = run["data"]
+    t = np.concatenate([b["t"] for b in data])
+    wm = float(t.max())
+    err = np.concatenate([(b["preds"].astype(np.float64) - b["target"]) ** 2 for b in data])
+    weight = 0.5 ** ((wm - t) / W3_HALF_LIFE)
+    want = float((weight * err).sum() / weight.sum())
+    rel = abs(run["value"] - want) / abs(want)
+    cpu = _k_cpu_run(lambda d: pt.Windowed(pt.MeanSquaredError(device=d), decay_half_life_s=W3_HALF_LIFE),
+                     [((torch.from_numpy(b["preds"]), torch.from_numpy(b["target"])), {"event_time": b["t"]})
+                      for b in data], K_CPU_STEPS)
+    _k_states_equal(f"W3 card against the CPU run after {K_CPU_STEPS} steps", run["early"], cpu, rtol=RTOL_K)
+    _check(rel <= RTOL_W3 and run["watermark"] == wm and run["dropped"] == 0,
+           f"W3: decayed MSE {run['value']:.7f} within rtol {RTOL_W3} of the float64 closed form {want:.7f} (rel"
+           f" {rel:.2e}) over {t.size:,} events, {W3_OUT_OF_ORDER:.0%} out of order; CPU run within rtol {RTOL_K}")
+
+    # W4: per-window, per-cohort counts
+    run = result["W4"]
+    timings["W4"] = run["summary"]
+    data = run["data"]
+    steps, head, dropped, late, origin = _k_oracle_route([d["t"] for d in data], W4_WINDOW_S, W4_WINDOW_S,
+                                                         W4_WINDOWS, W4_LATENESS)
+    resident = tuple(range(max(origin, head - W4_WINDOWS + 1), head + 1))
+
+    def cohort_fold(parts):
+        correct, total, rows = (np.zeros(J3_COHORTS, np.int64) for _ in range(3))
+        taken = 0
+        for i, mask in parts:
+            d = data[i]
+            inside = mask & (d["cohorts"] >= 0) & (d["cohorts"] < J3_COHORTS)
+            c = d["cohorts"][inside]
+            correct += np.bincount(c, weights=(d["classes"] == d["target"])[inside], minlength=J3_COHORTS).astype(
+                np.int64)
+            total += np.bincount(c, minlength=J3_COHORTS)
+            taken += int(mask.sum())
+        return correct, total, taken
+
+    oracle = _k_per_window(steps, resident, cohort_fold)
+    for w in resident:
+        slot = w % W4_WINDOWS
+        correct, total, taken = oracle[w]
+        c = run["counts"]
+        if not (np.array_equal(c["correct"][slot], correct) and np.array_equal(c["total"][slot], total)
+                and np.array_equal(c["keyed_rows"][slot], total) and c["windowed_rows"][slot] == taken):
+            raise AssertionError(f"W4 window {w}: per-cohort counts differ from the oracle")
+        if not np.array_equal(run["per_window"][w], run["alone"][w], equal_nan=True):
+            raise AssertionError(f"W4 compute_window({w}) differs from Keyed(Accuracy) fed the window's events")
+    misrouted = sum(int(((d["cohorts"] < 0) | (d["cohorts"] >= J3_COHORTS)).sum()) for d in data)
+    cpu = _k_cpu_run(lambda d: pt.Windowed(pt.Keyed(pt.Accuracy(device=d), J3_COHORTS), window_s=W4_WINDOW_S,
+                                           num_windows=W4_WINDOWS, allowed_lateness_s=W4_LATENESS),
+                     [((torch.from_numpy(d["probs"]), torch.from_numpy(d["target"])),
+                       {"slot": torch.from_numpy(d["cohorts"]), "event_time": d["t"]}) for d in data[:K_CPU_STEPS]],
+                     K_CPU_STEPS)
+    _k_states_equal(f"W4 card against the CPU run after {K_CPU_STEPS} steps", run["early"], cpu)
+    _check(run["resident"] == resident and run["dropped"] == dropped and run["late"] == late
+           and run["slab_dropped"] == dropped + misrouted,
+           f"W4: (window, cohort) correct / total equal numpy bit for bit over {len(resident)} windows x"
+           f" {J3_COHORTS:,} cohorts; compute_window(w) equals Keyed(Accuracy) fed the window's events; dropped"
+           f" {dropped:,} too late + {misrouted} cohort ids out of range = slab_dropped_samples"
+           f" {run['slab_dropped']:,}; CPU run equal")
+
+    # W5: the agreement
+    run = result["W5"]
+    held = run["held_open"]
+    _check(run["agreed"] == run["slow_wm"] and held["fast_dropped"] == 0 and held["fast_rows"] == held["n"]
+           and held["local_closed"] == held["n"] and held["lone_dropped"] == held["n"]
+           and held["fast_late"] == held["agreed_late"],
+           f"W5: with the slow rank {W5_LAG:.0f} s behind, the agreed clock {run['agreed']:.1f} holds windows open:"
+           f" {held['n']:,} events the fast rank's own clock had closed land (a lone ring drops all of them); late"
+           f" verdicts follow the agreed clock ({held['fast_late']:,} late)")
+    ex, back = run["excluded"], run["rejoined"]
+    _check(ex["excluded"] == ("slow",) and ex["degraded"] and ex["stragglers"] == 1 and ex["agreed"] == ex["fast_wm"]
+           and back["excluded"] == () and not back["degraded"] and back["agreed"] == ex["agreed"],
+           f"W5: past the {W5_DEADLINE} s deadline the silent rank is excluded (wm_stragglers +1, degraded, agreed"
+           f" {ex['agreed']:.1f} = the fast rank's clock) and rejoins on its next advance (its clock"
+           f" {back['slow_wm']:.1f}; the agreed high-water stays {back['agreed']:.1f})")
+
+    # W6: the collection's pure view, forward_batched and clone
+    run = result["W6"]
+    timings["W6"] = {**run["summary"], "forward_batched_ms": run["batched_ms"]}
+    per_step = {c["all_reduce"] for c in run["calls"]}
+    worst = 0.0
+    loop_epoch = run["epoch_loop"]
+    for k, v in run["values"][-1].items():
+        worst = max(worst, abs(v - loop_epoch[k]))
+        if not np.isclose(v, loop_epoch[k], rtol=RTOL_CLASS, atol=0):
+            raise AssertionError(f"W6 pure compute {k} = {v} but the stateful collection gives {loop_epoch[k]}")
+    _check(run["entries"] == ["Accuracy", "F1"] and per_step == {run["buckets"]} and run["buckets"] == 1
+           and run["pure_state_own"] == 0 and run["step_calls"]["all_reduce"] == 2,
+           f"W6: init_state has {len(run['entries'])} entries (the compute groups); update -> sync -> compute makes"
+           f" {run['buckets']} all_reduce a step, one per (dtype, op) bucket of the whole collection (the stateful"
+           f" per-step sync makes {run['step_calls']['all_reduce']}, one a compute group); its epoch equals the"
+           f" stateful collection's (max abs diff {worst:.2e})")
+    for k, series in run["batched"].items():
+        want = [s[k] for s in run["step_values"]]
+        if series != want:
+            raise AssertionError(f"W6 forward_batched {k}: {series[:3]}... but the forward loop gives {want[:3]}...")
+    _check(run["batched_epoch"] == run["epoch_loop"]
+           and run["clone_epoch"] == {f"b_{k}": v for k, v in run["batched_epoch"].items()},
+           f"W6: forward_batched over {A_STEPS} stacked batches ({run['stacked_bytes'] / 1e6:.0f} MB) gives path A's"
+           f" per-step values and epoch bit for bit in {run['batched_ms']:.1f} ms; clone(prefix='b_') the same"
+           f" values under new keys")
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -4769,6 +5363,10 @@ def main() -> int:
         "path_j_ms_per_step": {k: v["ms_per_step"] for k, v in paths["j"].items() if k != "J6"},
         "path_j6_ms_per_step": {k: v["ms_per_step"] for k, v in paths["j"]["J6"].items()},
         "path_j_peak_bytes": {k: paths["j"][k]["peak_bytes"] for k in ("J1", "J2")},
+        "path_k_ms_per_step": {k: v["ms_per_step"] for k, v in paths["k"].items()},
+        "path_k_device_share": {k: v["device_share"] for k, v in paths["k"].items()},
+        "path_k_peak_bytes": {k: v["peak_bytes"] for k, v in paths["k"].items() if k != "W6"},
+        "path_k_forward_batched_ms": paths["k"]["W6"]["forward_batched_ms"],
     }
 
     print(json.dumps({"kernels": [kernel]}))

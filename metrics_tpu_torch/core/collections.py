@@ -21,18 +21,30 @@ Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
   found holding others (written outside the collection) is diverged until
   the next collection-level ``reset``. Diverged members, singleton groups
   and members with their own sync configuration sync on their own;
+* ``forward_batched``: a stack of batches, one collection ``forward`` a step
+  (so one update a compute group a step), the per-step values stacked per
+  key and each member's epoch value cached as ``Metric.forward_batched``
+  caches it;
+* the pure view (``init_state`` / ``update_state`` / ``compute_from_state`` /
+  ``merge_states`` / ``sync_state``, ``pure()``) over a state deduplicated to
+  one entry a compute group; ``sync_state`` flattens every entry into one
+  call of the bucketed plane, one ``all_reduce`` per (dtype, op) bucket of
+  the whole collection;
 * ``state_dict`` / ``load_state_dict`` with the ``_compute_group_manifest``:
   one copy of each group's states plus a ``{member: representative}`` map,
-  readable by the JAX package and back.
+  readable by the JAX package and back;
+* ``clone(prefix=)``, a deep copy under another prefix.
 """
+from copy import deepcopy
 from typing import Any, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 from torch import nn
 
-from metrics_tpu_torch.core.metric import Metric
-from metrics_tpu_torch.parallel.sync import dist_active
+from metrics_tpu_torch.core.metric import Metric, PureMetric
+from metrics_tpu_torch.parallel.sync import all_reduce_state, dist_active
 from metrics_tpu_torch.utils.checks import shared_input_format
+from metrics_tpu_torch.utils.data import tree_stack
 from metrics_tpu_torch.utils.device import check_same_device
 
 
@@ -221,6 +233,26 @@ class MetricCollection(nn.ModuleDict):
             out[self._set_prefix(k)] = value
         return out
 
+    def forward_batched(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Accumulate a whole stack of batches (leading axis = steps): one
+        collection ``forward`` a step, so one update a compute group a step.
+        Returns ``{key: per-step values stacked}`` (``None`` for a member with
+        ``compute_on_step=False``). With positional arguments only, each
+        member without ``dist_sync_on_step`` or a configured cross-process
+        sync gets its epoch value cached, as ``Metric.forward_batched`` does."""
+        data = (*args, *kwargs.values())
+        if not data:
+            raise ValueError("forward_batched needs at least one argument with a leading step axis")
+        steps = int(data[0].shape[0])
+        per_step = [self.forward(*(a[i] for a in args), **{k: v[i] for k, v in kwargs.items()})
+                    for i in range(steps)]
+        out: Dict[str, Any] = {}
+        for k, m in self.items():
+            key = self._set_prefix(k)
+            out[key] = tree_stack([step[key] for step in per_step]) if m.compute_on_step else None
+            m._cache_batched_epoch(args, kwargs)
+        return out
+
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate: one update per compute group, merged into every member."""
         self._lockstep_check()
@@ -290,6 +322,64 @@ class MetricCollection(nn.ModuleDict):
     def persistent(self, mode: bool = True) -> None:
         for m in self.values():
             m.persistent(mode)
+
+    def clone(self, prefix: Optional[str] = None) -> "MetricCollection":
+        """A deep copy of the collection (members, states and lockstep
+        bookkeeping) whose output keys take ``prefix``; ``None`` drops the
+        prefix, as in the JAX package."""
+        mc = deepcopy(self)
+        mc.prefix = self._check_prefix_arg(prefix)
+        return mc
+
+    # -------------------------------------------------------------- pure view
+    def init_state(self) -> Dict[str, Dict[str, Any]]:
+        """The joint state: one entry per compute-group representative (every
+        member of a group accrues the same state), each the representative's
+        fresh ``init_state``. ``update_state`` / ``merge_states`` /
+        ``sync_state`` work on whatever entries they are given, so a full
+        per-member state still works."""
+        gm = self._group_map()
+        return {k: m.init_state() for k, m in self.items() if gm[k] == k}
+
+    def update_state(self, state: Dict[str, Dict[str, Any]], *args: Any, **kwargs: Any) -> Dict[str, Dict[str, Any]]:
+        """Pure joint update of every entry; input formatting is memoized for
+        the call, so entries over the same ``(preds, target)`` format it once."""
+        with shared_input_format():
+            return {k: self[k].update_state(state[k], *args, **self[k]._filter_kwargs(**kwargs)) for k in state}
+
+    def compute_from_state(self, state: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        """Every member's value, each from its own entry or its group's."""
+        gm = self._group_map()
+        return {self._set_prefix(k): m.compute_from_state(state[k] if k in state else state[gm[k]])
+                for k, m in self.items()}
+
+    def merge_states(self, a: Dict[str, Dict[str, Any]], b: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+        return {k: self[k].merge_states(a[k], b[k]) for k in a}
+
+    def sync_state(self, state: Dict[str, Dict[str, Any]], group: Optional[Any] = None) -> Dict[str, Dict[str, Any]]:
+        """The cross-rank reduction of the joint state over ``group`` (default:
+        the first entry's ``process_group``): the leaves of every entry go
+        through ONE call of the bucketed plane, so the whole collection makes
+        one ``all_reduce`` per (dtype, op) bucket and one gather for its
+        gather states. The members' own states are left as they are."""
+        flat = {(k, n): v for k, s in state.items() for n, v in s.items()}
+        reductions = {(k, n): self[k]._reductions[n] for k, s in state.items() for n in s}
+        layouts = {(k, n): self[k]._cat_layouts[n] for k, s in state.items() for n in s if n in self[k]._cat_layouts}
+        first = self[next(iter(state))] if state else None
+        if group is None and first is not None:
+            group = first.process_group
+        synced = all_reduce_state(flat, reductions, group=group, layouts=layouts,
+                                  device=None if first is None else first.device)
+        return {k: {n: synced[(k, n)] for n in s} for k, s in state.items()}
+
+    def pure(self) -> PureMetric:
+        """The pure view of the collection over the joint state."""
+        return PureMetric(init=self.init_state, update=self.update_state, compute=self.compute_from_state,
+                          merge=self.merge_states, sync=self.sync_state)
+
+    def __repr__(self) -> str:
+        inner = ",\n  ".join(f"{k}: {m!r}" for k, m in self.items())
+        return f"MetricCollection(\n  {inner}\n)"
 
     # ----------------------------------------------------------- checkpoint
     @staticmethod

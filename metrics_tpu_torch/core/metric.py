@@ -28,6 +28,10 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
   ``update_state`` / ``compute_from_state`` / ``merge_states`` /
   ``sync_state``, functions of an explicit state dict that leave the metric's
   own state as it is;
+* ``forward_batched``: a stack of batches (leading step axis) as one call,
+  the per-step batch values stacked and the epoch value cached. The JAX
+  package runs it as one ``lax.scan`` / ``vmap`` program; here it is an eager
+  loop of ``forward`` calls with the same per-step values;
 * ``reset``, and ``state_dict`` / ``load_state_dict`` in the JAX package's key
   layout (host numpy values, a buffer as ``{"data", "count"}``, a sketch as
   ``{"sketch_counts"}``, plus ``_count_bound`` and ``_epoch_watermark``), so a
@@ -67,6 +71,7 @@ from metrics_tpu_torch.parallel.sync import (
     is_mergeable,
     merge_values,
 )
+from metrics_tpu_torch.utils.data import tree_stack
 from metrics_tpu_torch.utils.device import check_same_device, resolve_device
 
 State = Dict[str, Any]
@@ -407,6 +412,38 @@ class Metric(nn.Module, ABC):
             return None
         self._forward_cache = self._compute_on(delta, sync=self.dist_sync_on_step)
         return self._forward_cache
+
+    def forward_batched(self, *args: Any, **kwargs: Any) -> Any:
+        """Accumulate a whole stack of batches (leading axis = steps); returns
+        the per-step batch values stacked, or ``None`` when
+        ``compute_on_step=False``.
+
+        The same as one ``forward`` per leading-axis slice, which is what it
+        runs. Where the JAX package's scan path applies (positional arguments
+        only, no ``dist_sync_on_step``, mergeable states) the epoch value of
+        the accumulated state is computed too and cached, so a following
+        ``compute()`` dispatches nothing, unless a cross-process sync is
+        configured (a ``dist_sync_fn`` or an initialized process group): then
+        ``compute()`` syncs as usual."""
+        data = (*args, *kwargs.values())
+        if not data:
+            raise ValueError("forward_batched needs at least one argument with a leading step axis")
+        steps = int(data[0].shape[0])
+        values = [self.forward(*(a[i] for a in args), **{k: v[i] for k, v in kwargs.items()}) for i in range(steps)]
+        if not self.compute_on_step:
+            return None
+        self._cache_batched_epoch(args, kwargs)
+        return tree_stack(values)
+
+    def _cache_batched_epoch(self, args: tuple, kwargs: dict) -> None:
+        """Cache the epoch value after a stack of forwards where the JAX
+        package's scan path would have computed it: positional arguments only,
+        no ``dist_sync_on_step``, mergeable states, and no cross-process sync
+        configured that a ``compute()`` would have to run."""
+        if (args and not kwargs and self.compute_on_step and not self.dist_sync_on_step and self._fusable
+                and self.dist_sync_fn is None and not dist_active()):
+            self._computed = self._compute_impl()
+            self._after_compute(self._computed)
 
     def _compute_on(self, state: State, sync: bool) -> Any:
         """The batch value: ``compute`` run on ``state`` (synced across ranks

@@ -1,9 +1,10 @@
-"""Counters of the keyed wrappers: dropped samples, destroyed history and slot gauges.
+"""Counters of the keyed wrappers and the watermark agreement.
 
-Counterpart of the slab part of ``metrics_tpu/observability/counters.py``:
-the :class:`CollectiveCounters` registry, ``enable`` / ``disable`` /
-``is_enabled`` / ``reset`` / ``snapshot``, and the four record functions the
-wrappers call. What is counted:
+Counterpart of the slab and watermark parts of
+``metrics_tpu/observability/counters.py``: the :class:`CollectiveCounters`
+registry, ``enable`` / ``disable`` / ``is_enabled`` / ``reset`` /
+``snapshot``, and the record functions the wrappers and
+``core/streaming.WatermarkAgreement`` call. What is counted:
 
 - **slab_dropped_samples**: samples whose slot id fell outside a slab's
   ``[0, K)`` range and were dropped by the scatter (``parallel/slab.py``).
@@ -21,9 +22,18 @@ wrappers call. What is counted:
   "hot_occupied", "promotions", "demotions", "tail_mass", "tail_bound"}}``
   from the space-saving table's host bookkeeping (no device read), refreshed
   after every update while counting is enabled.
+- **wm_stragglers**: ranks excluded from a ``WatermarkAgreement`` because
+  their watermark stalled past its ``deadline_s``; one per exclusion episode.
+  Recorded even while counting is disabled: an excluded rank's events are
+  judged by a clock it no longer feeds.
+- **wm_exchange_calls**: watermark exchange rounds dispatched, while counting
+  is enabled.
+- **watermark_agreement**: per-agreement gauges ``{label: {"agreed",
+  "ranks", "excluded", "exchanges"}}``, refreshed on every exchange and every
+  exclusion or rejoin while counting is enabled.
 
 The collective, cache, fault and serving counters of the JAX package's
-registry are not ported yet; ``snapshot()`` carries the four keys above, with
+registry are not ported yet; ``snapshot()`` carries the seven keys above, with
 the JAX package's names and layouts. Counting is off by default; all mutation
 happens under one lock.
 """
@@ -40,6 +50,9 @@ __all__ = [
     "record_heavy_hitters",
     "record_slab_dropped",
     "record_slab_slots",
+    "record_watermark_agreement",
+    "record_wm_exchange",
+    "record_wm_straggler",
     "reset",
     "snapshot",
 ]
@@ -48,7 +61,8 @@ __all__ = [
 class CollectiveCounters:
     """Process-wide counters; ``enabled`` is the gate of the gauges."""
 
-    __slots__ = ("enabled", "slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters", "_lock")
+    __slots__ = ("enabled", "slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters",
+                 "wm_stragglers", "wm_exchange_calls", "watermark_agreement", "_lock")
 
     def __init__(self) -> None:
         self.enabled = False
@@ -60,6 +74,9 @@ class CollectiveCounters:
         self.evicted_mass_dropped = 0
         self.slab_slots: Dict[str, Dict[str, int]] = {}
         self.heavy_hitters: Dict[str, Dict[str, Any]] = {}
+        self.wm_stragglers = 0
+        self.wm_exchange_calls = 0
+        self.watermark_agreement: Dict[str, Dict[str, Any]] = {}
 
     def record_slab_dropped(self, n: int = 1) -> None:
         """Count samples dropped by a slab scatter's out-of-range slot ids."""
@@ -74,6 +91,28 @@ class CollectiveCounters:
             raise ValueError(f"evicted-mass count must be >= 0, got {n}")
         with self._lock:
             self.evicted_mass_dropped += int(n)
+
+    def record_wm_straggler(self, n: int = 1) -> None:
+        """Count watermark-agreement exclusion episodes."""
+        if n < 0:
+            raise ValueError(f"straggler count must be >= 0, got {n}")
+        with self._lock:
+            self.wm_stragglers += int(n)
+
+    def record_wm_exchange(self, n: int = 1) -> None:
+        """Count watermark exchange rounds dispatched."""
+        with self._lock:
+            self.wm_exchange_calls += int(n)
+
+    def record_watermark_agreement(self, label: str, agreed: Any, ranks: int, excluded: Any, exchanges: int) -> None:
+        """Refresh one watermark agreement's gauges (latest value wins)."""
+        with self._lock:
+            self.watermark_agreement[label] = {
+                "agreed": None if agreed is None else float(agreed),
+                "ranks": int(ranks),
+                "excluded": sorted(str(r) for r in excluded),
+                "exchanges": int(exchanges),
+            }
 
     def record_slab_slots(self, label: str, slots: int, occupied: int, evictions: int) -> None:
         """Refresh one keyed slab's slot gauges (latest value wins)."""
@@ -99,6 +138,9 @@ class CollectiveCounters:
             return {
                 "slab_dropped_samples": self.slab_dropped_samples,
                 "evicted_mass_dropped": self.evicted_mass_dropped,
+                "wm_stragglers": self.wm_stragglers,
+                "wm_exchange_calls": self.wm_exchange_calls,
+                "watermark_agreement": {k: dict(v) for k, v in sorted(self.watermark_agreement.items())},
                 "slab_slots": {k: dict(v) for k, v in sorted(self.slab_slots.items())},
                 "heavy_hitters": {k: dict(v) for k, v in sorted(self.heavy_hitters.items())},
             }
@@ -122,6 +164,10 @@ def record_evicted_mass(n: int) -> None:
     COUNTERS.record_evicted_mass(n)
 
 
+def record_wm_straggler(n: int = 1) -> None:
+    COUNTERS.record_wm_straggler(n)
+
+
 # the gauges are telemetry and share the enabled gate
 def record_slab_slots(label: str, slots: int, occupied: int, evictions: int) -> None:
     if COUNTERS.enabled:
@@ -132,6 +178,16 @@ def record_heavy_hitters(label: str, hot_slots: int, hot_occupied: int, promotio
                          tail_mass: int, tail_bound: float) -> None:
     if COUNTERS.enabled:
         COUNTERS.record_heavy_hitters(label, hot_slots, hot_occupied, promotions, demotions, tail_mass, tail_bound)
+
+
+def record_wm_exchange(n: int = 1) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_wm_exchange(n)
+
+
+def record_watermark_agreement(label: str, agreed: Any, ranks: int, excluded: Any, exchanges: int) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_watermark_agreement(label, agreed, ranks, excluded, exchanges)
 
 
 def enable() -> None:

@@ -231,14 +231,21 @@ def slab_scatter(reduce: str, deltas: Tensor, slot_ids: Any, num_slots: int) -> 
     max, whose empty rows come back as the reduce identity (``±inf`` /
     ``iinfo`` extremes) and so vanish in the merge with the accumulator.
     Out-of-range slot ids (negative or >= K) are dropped, as the JAX package's
-    scatter drops them: those samples scatter the identity at row 0."""
+    scatter drops them: those samples scatter the identity at row 0. Out of
+    place (``scatter_add`` / ``scatter_reduce``), so it also runs under
+    ``torch.func.vmap``, where both have a batching rule."""
     ids = torch.as_tensor(slot_ids)
     index, valid = _routed(ids, num_slots, deltas.device)
     identity = _identity(reduce, deltas.dtype)
+    shape = (-1,) + (1,) * (deltas.ndim - 1)
+    src = torch.where(valid.view(shape), deltas, torch.full((), identity, dtype=deltas.dtype, device=deltas.device))
     out = torch.full((num_slots, *deltas.shape[1:]), identity, dtype=deltas.dtype, device=deltas.device)
-    src = torch.where(valid.view(-1, *(1,) * (deltas.ndim - 1)), deltas,
-                      torch.full((), identity, dtype=deltas.dtype, device=deltas.device))
-    return scatter_rows_(out, reduce, src, index)
+    full = index.view(shape).expand(src.shape)
+    if reduce in ("sum", "mean"):
+        return out.scatter_add(0, full, src)
+    if reduce not in ("min", "max"):
+        raise ValueError(f"slab reduce must be one of {SLAB_REDUCES}, got {reduce!r}")
+    return out.scatter_reduce(0, full, src, "amin" if reduce == "min" else "amax", include_self=True)
 
 
 def slab_touched_mask(slot_ids: Any, num_slots: int) -> Tensor:

@@ -64,6 +64,22 @@ def is_batched(x: Any) -> bool:
     return isinstance(x, Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(x)
 
 
+def tree_stack(values: Sequence[Any]) -> Any:
+    """Stack equally structured values along a new leading axis: tensors
+    (and Python numbers) with ``torch.stack``, dicts per key, (named) tuples
+    and lists per position. The ``jax.tree_util.tree_map(jnp.stack)`` of the
+    JAX package's batched forwards."""
+    first = values[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([v[k] for v in values]) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(tree_stack([v[i] for v in values]) for i in range(len(first))))
+    if isinstance(first, (list, tuple)):
+        stacked = [tree_stack([v[i] for v in values]) for i in range(len(first))]
+        return tuple(stacked) if isinstance(first, tuple) else stacked
+    return torch.stack([torch.as_tensor(v) for v in values])
+
+
 def accum_int_dtype() -> torch.dtype:
     """Dtype of count-accumulator states: int64, always (the JAX package's
     counterpart picks int32 unless ``jax_enable_x64`` is set)."""

@@ -27,6 +27,15 @@ Out-of-range slot ids are dropped: the ids are read to the host once an update
 are left out before the scatter, so no index leaves the slab (a CUDA scatter
 with one would end the process).
 
+Under ``torch.func.vmap`` (the per-sample deltas of ``Windowed(Keyed(...))``)
+the slot ids are batched and cannot be read: the update then reads nothing,
+and scatters out of place through :func:`~metrics_tpu_torch.parallel.slab.
+slab_scatter`, which writes an out-of-range id's sample as the reduce identity
+at a valid row and has a batching rule (a ``scatter_add`` /
+``scatter_reduce``, never a per-sample ``index_add``). The caller counts the
+dropped ids from its own host copy, as ``Windowed`` does. ``lru=True`` cannot
+resolve batched keys and raises ``TracingUnsupportedError``.
+
 Contract on the inner metric: every state is a fixed-shape tensor with a
 ``sum`` / ``mean`` / ``min`` / ``max`` reduction or a sketch state, and the
 inner ``update`` is per-sample decomposable (a batch's update equals the merge
@@ -50,6 +59,7 @@ from metrics_tpu_torch.observability.counters import (
     record_slab_dropped,
     record_slab_slots,
 )
+from metrics_tpu_torch.parallel.cms import CMSSpec
 from metrics_tpu_torch.parallel.qsketch import QSketchSpec
 from metrics_tpu_torch.parallel.sketch import SketchSpec, is_sketch
 from metrics_tpu_torch.parallel.slab import (
@@ -62,9 +72,12 @@ from metrics_tpu_torch.parallel.slab import (
     slab_init,
     slab_merge,
     slab_rows_spec,
+    slab_scatter,
     slab_sync_reduce,
 )
+from metrics_tpu_torch.utils.data import is_batched
 from metrics_tpu_torch.utils.device import check_same_device
+from metrics_tpu_torch.utils.exceptions import TracingUnsupportedError
 from metrics_tpu_torch.utils.prints import rank_zero_warn_once
 
 __all__ = ["Keyed"]
@@ -118,9 +131,11 @@ def _nbytes(state: State) -> int:
 
 
 def _spec_bytes(spec: Any) -> int:
-    """Bytes of one sample's delta of an inner state declared by ``spec``."""
-    if isinstance(spec, (SketchSpec, QSketchSpec)):
-        return int(np.prod(spec.shape)) * torch.empty((), dtype=spec.dtype).element_size()
+    """Bytes of one sample's delta of an inner state declared by ``spec`` (a
+    nested slab's delta is its whole ``(K, *item)`` slab)."""
+    if isinstance(spec, (SketchSpec, QSketchSpec, CMSSpec, SlabSpec)):
+        shape = spec.row_shape if isinstance(spec, SlabSpec) else spec.shape
+        return int(np.prod(shape)) * torch.empty((), dtype=spec.dtype).element_size()
     return spec.numel() * spec.element_size()
 
 
@@ -338,6 +353,15 @@ class Keyed(Metric):
         the slot gauges."""
         if slot is None:
             raise ValueError("Keyed.update requires `slot=` (one segment id per sample)")
+        if is_batched(slot):
+            # under vmap: nothing can be read back, so nothing is counted here
+            # and the scatter drops the out-of-range ids itself (_scatter_batched)
+            if self.lru:
+                raise TracingUnsupportedError(
+                    "Keyed(lru=True) resolves segment keys on the host and cannot run under torch.func.vmap;"
+                    " drive it eagerly, or use lru=False with integer slot ids"
+                )
+            return slot.reshape(-1).to(torch.int64), None
         ids_host, ids = self._resolve_slot_ids(slot)
         keep = None
         if not self.lru:
@@ -364,6 +388,9 @@ class Keyed(Metric):
         if keep is not None:
             data = tuple(a.index_select(0, keep) for a in data)
         kw_keys, n_args = tuple(kwargs), len(args)
+        if is_batched(ids):
+            self._scatter_batched(data, n_args, kw_keys, ids)
+            return
         for part_ids, part in sample_chunks(self.metric, data, ids):
             deltas = per_sample_deltas(self.metric, part, n_args, kw_keys)
             for name in self.metric._defaults:
@@ -374,6 +401,24 @@ class Keyed(Metric):
                     scatter_rows_(current, self._slab_reduce[name], leaf, part_ids)
         rows = getattr(self, _ROWS_STATE)
         rows.index_add_(0, ids, torch.ones(ids.shape, dtype=rows.dtype, device=rows.device))
+
+    def _scatter_batched(self, data: tuple, n_args: int, kw_keys: tuple, ids: Tensor) -> None:
+        """The scatter under ``torch.func.vmap``: out of place, through
+        :func:`slab_scatter` (out-of-range ids scatter the identity), merged
+        into the current slabs. The states are rebound, not written in place:
+        an in-place write of a batched delta into an unbatched slab is not
+        defined under ``vmap``."""
+        deltas = per_sample_deltas(self.metric, data, n_args, kw_keys)
+        for name in self.metric._defaults:
+            current, leaf = getattr(self, name), deltas[name]
+            if is_sketch(current):
+                setattr(self, name, type(current)(current.counts + slab_scatter("sum", leaf.counts, ids, self.num_slots)))
+            else:
+                reduce = self._slab_reduce[name]
+                setattr(self, name, slab_merge(reduce, current, slab_scatter(reduce, leaf, ids, self.num_slots)))
+        rows = getattr(self, _ROWS_STATE)
+        ones = torch.ones(ids.shape, dtype=rows.dtype, device=rows.device)
+        setattr(self, _ROWS_STATE, rows + slab_scatter("sum", ones, ids, self.num_slots))
 
     def _resolve_slot_ids(self, slot: Any) -> Tuple[np.ndarray, Tensor]:
         """``(host ids, device ids)`` of one batch (int64). A tensor of ids is

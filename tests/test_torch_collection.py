@@ -273,3 +273,145 @@ def test_state_dict_carried_across_packages(kind, build, direction):
 
 def _as(collection, x):
     return torch.from_numpy(x) if isinstance(collection, pt.MetricCollection) else jnp.asarray(x)
+
+
+# ------------------------------------------------ clone, repr, the pure view and forward_batched
+def _assert_prefixed(got: dict, want: dict):
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-6, atol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("new_prefix", ["b_", None])
+def test_clone_with_prefix_equals_jax_and_leaves_the_original(new_prefix):
+    ref = mt.MetricCollection(dict(_main_path(mt).items()), prefix="a_")
+    port = pt.MetricCollection(dict(_main_path(pt).items()), prefix="a_")
+    batches = _batches("main", steps=3)
+    for preds, target in batches[:2]:
+        ref.update(jnp.asarray(preds), jnp.asarray(target))
+        port.update(torch.from_numpy(preds), torch.from_numpy(target))
+    jclone, pclone = ref.clone(prefix=new_prefix), port.clone(prefix=new_prefix)
+    assert pclone.prefix == jclone.prefix == new_prefix and port.prefix == "a_"
+    assert pclone is not port and all(pclone[k] is not port[k] for k in port)
+    preds, target = batches[2]
+    _assert_prefixed(pclone(torch.from_numpy(preds), torch.from_numpy(target)),
+                   jclone(jnp.asarray(preds), jnp.asarray(target)))
+    _assert_prefixed(pclone.compute(), jclone.compute())
+    assert set(pclone.compute()) == {f"{new_prefix or ''}{k}" for k in port}
+    # the original kept its two updates and its prefix
+    _assert_prefixed(port.compute(), ref.compute())
+    assert int((port["F1"].tp + port["F1"].fn).sum()) == 2 * 64 and pclone.compute_groups == port.compute_groups
+    with pytest.raises(ValueError, match="prefix"):
+        port.clone(prefix=3)
+
+
+def test_repr_lists_members_as_jax():
+    ref, port = _main_path(mt), _main_path(pt)
+    want = ref.__repr__().splitlines()
+    got = port.__repr__().splitlines()
+    assert got[0] == want[0] == "MetricCollection(" and got[-1] == want[-1] == ")"
+    assert [line.split(":")[0] for line in got[1:-1]] == [line.split(":")[0] for line in want[1:-1]]
+    assert got[1] == f"  Accuracy: {port['Accuracy']!r},"
+
+
+def test_pure_view_dedups_groups_and_equals_jax():
+    ref, port = _main_path(mt), _main_path(pt)
+    jpure, ppure = ref.pure(), port.pure()
+    pstate, jstate = ppure.init(), jpure.init()
+    assert set(pstate) == set(jstate) == {"Accuracy", "F1"}  # one entry a compute group
+    batches = _batches("main", steps=3)
+    for preds, target in batches:
+        pstate = ppure.update(pstate, torch.from_numpy(preds), torch.from_numpy(target))
+        jstate = jpure.update(jstate, jnp.asarray(preds), jnp.asarray(target))
+    _assert_values(ppure.compute(pstate), jpure.compute(jstate))
+    for k in pstate:
+        for name, value in pstate[k].items():
+            np.testing.assert_array_equal(value.numpy(), np.asarray(jstate[k][name]))
+    # the collection's own states stay untouched
+    assert int(port["F1"].tp.sum()) == 0 and int(port["Accuracy"].total) == 0
+    # the stateful collection fed the same batches agrees
+    for preds, target in batches:
+        port.update(torch.from_numpy(preds), torch.from_numpy(target))
+    _assert_values(ppure.compute(pstate), {k: v for k, v in port.compute().items()})
+    # merge of two halves equals the whole; a full per-member state still works
+    half_a = ppure.update(ppure.init(), *(torch.from_numpy(x) for x in batches[0]))
+    half_b = ppure.init()
+    for preds, target in batches[1:]:
+        half_b = ppure.update(half_b, torch.from_numpy(preds), torch.from_numpy(target))
+    _assert_values(ppure.compute(ppure.merge(half_a, half_b)), ppure.compute(pstate))
+    full = {k: m.init_state() for k, m in port.items()}
+    jfull = {k: m.init_state() for k, m in ref.items()}
+    for preds, target in batches:
+        full = ppure.update(full, torch.from_numpy(preds), torch.from_numpy(target))
+        jfull = jpure.update(jfull, jnp.asarray(preds), jnp.asarray(target))
+    assert set(full) == set(port)
+    _assert_values(ppure.compute(full), jpure.compute(jfull))
+
+
+def test_pure_sync_with_fake_single_rank_group_is_identity(monkeypatch):
+    """Without a process group the bucketed plane is not reachable; with a
+    one-rank Gloo group the sync is the identity, one all_reduce a bucket."""
+    import torch.distributed as dist
+
+    port = _main_path(pt)
+    pure = port.pure()
+    state = pure.update(pure.init(), *(torch.from_numpy(x) for x in _batches("main", steps=1)[0]))
+    store = dist.HashStore()
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        calls = []
+        real = dist.all_reduce
+        monkeypatch.setattr(dist, "all_reduce", lambda t, *a, **k: calls.append(t.dtype) or real(t, *a, **k))
+        synced = pure.sync(state)
+    finally:
+        dist.destroy_process_group()
+    assert calls == [torch.int64]  # Accuracy's and the stat-score group's int64 sums: one bucket
+    for k in state:
+        for name in state[k]:
+            assert torch.equal(synced[k][name], state[k][name])
+
+
+@pytest.mark.parametrize("kind,build", [("main", _main_path), ("binned", _binned)])
+def test_forward_batched_equals_jax_and_a_forward_loop(kind, build):
+    ref, port, loop = build(mt), build(pt), build(pt)
+    batches = _batches(kind, steps=4)
+    preds = np.stack([b[0] for b in batches])
+    target = np.stack([b[1] for b in batches])
+    got = port.forward_batched(torch.from_numpy(preds), torch.from_numpy(target))
+    want = ref.forward_batched(jnp.asarray(preds), jnp.asarray(target))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == (4,)
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=_RTOL[k], atol=0, err_msg=k)
+    stepwise = [loop(torch.from_numpy(p), torch.from_numpy(t)) for p, t in batches]
+    for k in got:
+        assert torch.equal(got[k], torch.stack([s[k] for s in stepwise]))
+    # the epoch value is cached: compute() runs no member compute
+    cached = {k: m._computed for k, m in port.items()}
+    assert all(v is not None for v in cached.values())
+    _assert_values(port.compute(), ref.compute())
+    _assert_values(port.compute(), loop.compute())
+    assert all(port[k]._epoch_watermark == 4 for k in port)
+
+
+def test_metric_forward_batched_equals_jax_and_falls_back_with_kwargs():
+    port, ref = pt.Accuracy(device="cpu"), mt.Accuracy()
+    batches = _batches("main", steps=3)
+    preds = np.stack([b[0] for b in batches])
+    target = np.stack([b[1] for b in batches])
+    got = port.forward_batched(torch.from_numpy(preds), torch.from_numpy(target))
+    want = ref.forward_batched(jnp.asarray(preds), jnp.asarray(target))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    assert port._computed is not None and port._epoch_watermark == ref._epoch_watermark == 3
+    np.testing.assert_allclose(float(port.compute()), float(ref.compute()), rtol=1e-6)
+    # keyword arguments: the per-step forwards, no cached epoch value
+    kw = pt.Accuracy(device="cpu")
+    by_kw = kw.forward_batched(preds=torch.from_numpy(preds), target=torch.from_numpy(target))
+    assert torch.equal(by_kw, got) and kw._computed is None
+    off = pt.Accuracy(device="cpu", compute_on_step=False)
+    assert off.forward_batched(torch.from_numpy(preds), torch.from_numpy(target)) is None
+    assert int(off.total) == preds.shape[0] * preds.shape[1]
+    # a synced configuration leaves compute() to sync
+    synced = pt.Accuracy(device="cpu", dist_sync_fn=lambda x: [x])
+    synced.forward_batched(torch.from_numpy(preds), torch.from_numpy(target))
+    assert synced._computed is None

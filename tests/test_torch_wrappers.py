@@ -623,12 +623,14 @@ def test_counters_slab_keys_equal_jax_after_the_same_stream():
         for key in ("slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters"):
             assert got[key] == want[key], key
         assert got["slab_dropped_samples"] == 4 * 5 and got["evicted_mass_dropped"] > 0
-        assert set(got) == {"slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters"}
+        assert set(got) == {"slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters",
+                            "wm_stragglers", "wm_exchange_calls", "watermark_agreement"}
         pcounters.disable()
         keyed.update(*_args(b, ("probs", "classes")), slot=torch.from_numpy(b["slots"]))
         assert pcounters.snapshot(reset_after=True)["slab_dropped_samples"] == 5 * 5  # recorded with counting off
         assert pcounters.snapshot() == {"slab_dropped_samples": 0, "evicted_mass_dropped": 0, "slab_slots": {},
-                                        "heavy_hitters": {}}
+                                        "heavy_hitters": {}, "wm_stragglers": 0, "wm_exchange_calls": 0,
+                                        "watermark_agreement": {}}
     finally:
         pcounters.disable()
         pcounters.reset()
@@ -640,12 +642,11 @@ def test_wrappers_are_exported_as_in_jax():
     import metrics_tpu_torch.wrappers as pw
 
     for name in ("PureMetric", "Keyed", "HeavyHitters", "Running", "BootStrapper", "MetricTracker",
-                 "ClasswiseWrapper", "MinMaxMetric", "MultioutputWrapper"):
+                 "ClasswiseWrapper", "MinMaxMetric", "MultioutputWrapper", "Windowed"):
         assert hasattr(mt, name) and name in pt.__all__ and getattr(pt, name) is not None, name
         if name != "PureMetric":
             assert getattr(pt, name) is getattr(pw, name)
     assert pt.core.PureMetric is pt.PureMetric and pt.parallel.SlabSpec is pslab.SlabSpec
-    assert not hasattr(pt, "Windowed")
 
 
 def test_routed_forward_resets_the_accumulated_row_where_jax_keeps_its_history():
