@@ -213,7 +213,26 @@ Phases, in order; each raises on failure and none is caught:
    ``clone(prefix="b_")``. Prints each part's ms per step, a profiled step's device ms, share, operations and
    synchronizing calls, collective calls and peak bytes above the state. Path K runs no hand-written kernel: the
    JAX package's routing is host numpy and its scatters ``segment_sum``, never Pallas.
-15. The ``kernels`` JSON line, then the device JSON as the last line.
+15. Path L, the guarded and deferred sync plane, in the same group with ``device="cuda"`` (nothing caught), at path
+   A's size and W1's. L1: path A's collection with ``sync_lag`` 1 and 2 (every member): each step's values equal the
+   synchronous run's ``k`` steps back bit for bit, the epoch after the drain equals the synchronous epoch; ms/step,
+   collectives a step and a profiled step's synchronizing calls beside the synchronous run's, and
+   ``sync_lag="auto"`` with the lags its controllers chose. L2: the same collection under chaos schedules: a
+   transient drop x2 (``sync_retries`` 2, values bit-equal), a corrupt payload under ``check_finite=True`` (retried,
+   bit-equal), a persistent drop under ``policy="degrade"`` (local values, ``degraded_computes``) and ``"raise"``
+   (``SyncTimeoutError``), and a deadline (async NCCL work, polled). L3: ``Windowed(MeanSquaredError())`` over W1's
+   stream and ``Keyed(MeanSquaredError(), 10,000)`` over J1's tenants, one NaN-poisoned batch each: under
+   ``check_finite="quarantine"`` the slabs equal a run without it bit for bit (``quarantined_updates`` + 1), under
+   ``"raise"`` it raises ``StateCorruptionError``, and ``state_integrity_counts`` of a corrupted state equals the
+   CPU's; J1 itself (``Keyed(AUROC(approx="sketch"))``) takes NaN scores with clean counts (its binning drops them).
+   L4: path A checkpointed at step 10 through ``state_dict``, restored and replayed with ``guarded_update`` from
+   step 7: equal to the unbroken run bit for bit; a straddling span raises ``ValueError``. L5: the collection's
+   pure view, ``sync_state(deferred=True)`` against the synchronous sync while the live state is written in place.
+   L6: two Gloo processes of this script (``--l6-worker``), one 90 s behind, one ``WatermarkAgreement`` each: the
+   exchange agrees on the minimum, holds the fast rank's windows open, excludes the silent rank past its deadline and
+   lets it rejoin. Path L runs no hand-written kernel: the JAX package's guard, deferred and lag planes are host
+   logic and collectives.
+16. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -595,6 +614,9 @@ def phase_paths():
         t0 = time.perf_counter()
         path_k = run_path_k(dev, a_batches)
         path_k_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path_l = run_path_l(dev, a_batches)
+        path_l_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
 
@@ -626,10 +648,13 @@ def phase_paths():
     t0 = time.perf_counter()
     k_timings = check_path_k(path_k)
     print(f"    path K: {path_k_s:.1f} s on the card, {time.perf_counter() - t0:.1f} s of checks on the host")
+    t0 = time.perf_counter()
+    l_timings = check_path_l(path_l)
+    print(f"    path L: {path_l_s:.1f} s on the card and in L6's processes, {time.perf_counter() - t0:.1f} s of checks")
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
             "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings, "j": j_timings,
-            "k": k_timings}
+            "k": k_timings, "l": l_timings}
 
 
 def _profile_step(collection, batch):
@@ -1111,31 +1136,37 @@ def run_path_d(device):
     return runs
 
 
+def _host_sync_sites(fn):
+    """``fn()`` under torch's sync debug mode: a ``Counter`` of the Python lines that made a synchronizing CUDA
+    call (torch's own notice that the mode is a prototype is not one), and ``fn``'s result."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    here = os.path.dirname(os.path.abspath(__file__))
+    return Counter(f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+                   if "synchroniz" in str(w.message).lower() and "prototype" not in str(w.message)), out
+
+
 def _profile_call(step, calls=5):
     """Device operations of one ``step()`` (``torch.profiler`` over ``calls`` calls) and the synchronizing
     CUDA calls of one more."""
-    import warnings
-
     import torch
 
     from metrics_tpu_torch.tools.cuda_timing import device_breakdown
 
     rows = device_breakdown(step, calls=calls)
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
-    sites = {}
-    for w in syncs:  # the Python line that made each synchronizing call
-        site = f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
-        sites[site] = sites.get(site, 0) + 1
+    sites, _ = _host_sync_sites(step)
     return {"device_ms": sum(r["us_per_call"] for r in rows) / 1e3, "ops": sum(r["per_call"] for r in rows),
-            "host_syncs": len(syncs), "sync_sites": sorted(sites.items(), key=lambda kv: -kv[1])[:8],
+            "host_syncs": sum(sites.values()), "sync_sites": sites.most_common(8),
             "sort_ms": sum(r["us_per_call"] for r in rows if "sort" in r["name"].lower()) / 1e3,
             "scatter_ms": sum(r["us_per_call"] for r in rows
                               if "indexfunc" in r["name"].lower() or "scatter_gather" in r["name"].lower()) / 1e3,
@@ -4211,8 +4242,6 @@ def _j_summary(label, ms, calls, peaks, profile, state_bytes):
 def _j_profile(step, calls=3):
     """One ``step()`` profiled: device milliseconds and operations from ``torch.profiler`` over ``calls`` calls
     (``None`` where its trace holds no device time: not measured), and the synchronizing CUDA calls of one more."""
-    import warnings
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4226,15 +4255,7 @@ def _j_profile(step, calls=3):
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0), key=lambda r: -r["us_per_call"])
     device_ms = sum(r["us_per_call"] for r in rows) / 1e3
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    sites = Counter(f"{os.path.relpath(w.filename, os.path.dirname(os.path.abspath(__file__)))}:{w.lineno}"
-                    for w in caught if "synchroniz" in str(w.message).lower())
+    sites, _ = _host_sync_sites(step)
     return {"device_ms": device_ms if device_ms > 0 else None, "ops": sum(r["per_call"] for r in rows),
             "host_syncs": sum(sites.values()), "sync_sites": sites.most_common(8), "top": rows[:8]}
 
@@ -5300,6 +5321,457 @@ def check_path_k(result):
     return timings
 
 
+# ---- path L: the guarded and deferred sync plane, at path A's size (4,096 x 1,000, 20 steps) and W1's (65,536
+# events a step), in the script's one-rank NCCL group; L6 in two Gloo processes on the host
+L_GUARD_STEPS = 8  # path A steps of each L2 fault run (the unfaulted run is the first 8 steps of L1's)
+L3_POISON_STEP = 12  # the step before which L3 inserts its NaN-poisoned batch
+L4_CHECKPOINT, L4_REPLAY_FROM = 10, 7
+L6_DEADLINE, L6_LAG = 3.0, 90.0  # a deadline well above the processes' scheduling skew
+# L3's float32 slab sums of two runs on the card: the same terms (up to ~200,000 a cell), added by atomics in another
+# order, 4 sqrt(n) float32 ulps apart at most in practice; one batch more or less moves a cell by ~4%
+RTOL_L3 = 1e-4
+
+
+def _l_values(values):
+    """Per-step values of a collection as host floats (a float32 .item() each: bit for bit)."""
+    return [{k: v.item() for k, v in step.items()} for step in values]
+
+
+def _l_lagged(device, a_batches, lag):
+    """Path A's collection with ``sync_lag=lag`` on every member: per-step values, ms per step, collective calls a
+    step, the epoch after the drain, and each member's chosen lag for ``"auto"``."""
+    col = _main_collection(device, dist_sync_on_step=True)
+    for m in col.values():
+        m.sync_lag = lag
+    values, ms, calls, _ = _j_steps(device, col, a_batches, lambda c, b: c(*b))
+    with _CountCollectives() as epoch_calls:
+        epoch = {k: v.item() for k, v in col.compute().items()}
+    chosen = {k: m._lag_controller.lag for k, m in col.items() if m._lag_controller is not None}
+    return {"values": _l_values(values), "ms": ms, "calls": calls, "epoch": epoch, "epoch_calls": dict(epoch_calls),
+            "chosen": chosen}
+
+
+def _l_host_syncs(device, fn):
+    """The synchronizing CUDA calls ``fn()`` makes (torch's sync debug mode; 0 off the card), and its result."""
+    if device.type != "cuda":
+        return 0, fn()
+    sites, out = _host_sync_sites(fn)
+    return sum(sites.values()), out
+
+
+def _l_guarded(device, batches, guard, specs, expect=None):
+    """L2: path A's collection under ``guard`` and a chaos schedule: values, epoch, fault counters, ms per step,
+    collective calls a step and the synchronizing calls of its last step; or, with ``expect`` (an exception type),
+    the seconds until it raised that type."""
+    from metrics_tpu_torch.observability import counters
+    from metrics_tpu_torch.parallel import faults, sync
+
+    counters.reset()
+    col = _main_collection(device, dist_sync_on_step=True)
+    old = sync.set_sync_guard(guard)
+    try:
+        with faults.chaos(*[faults.FaultSpec(**s) for s in specs]), _CountCollectives() as calls:
+            t0 = time.perf_counter()
+            if expect is not None:
+                try:
+                    col(*batches[0])
+                except expect as err:
+                    return {"raised": type(err).__name__, "s": time.perf_counter() - t0}
+                return {"raised": None}
+            values = [col(*b) for b in batches[:-1]]
+            syncs, last = _l_host_syncs(device, lambda: col(*batches[-1]))
+            values.append(last)
+            _sync(device)
+            wall = (time.perf_counter() - t0) * 1e3 / len(batches)
+            per_step = {k: v / len(batches) for k, v in calls.items()}
+            epoch = {k: v.item() for k, v in col.compute().items()}
+    finally:
+        sync.set_sync_guard(old)
+    return {"values": _l_values(values), "epoch": epoch, "faults": counters.snapshot()["faults"], "ms": wall,
+            "calls": per_step, "host_syncs": syncs}
+
+
+def _l3_make(kind, device, policy=None):
+    import metrics_tpu_torch as pt
+
+    if kind == "W1":
+        m = pt.Windowed(pt.MeanSquaredError(device=device), window_s=W1_WINDOW_S, num_windows=W1_WINDOWS,
+                        allowed_lateness_s=W1_LATENESS)
+    else:
+        m = pt.Keyed(pt.MeanSquaredError(device=device), num_slots=J_SLOTS)
+    m.check_finite = policy
+    return m
+
+
+def _l3_run(kind, device, inputs, policy=None, poison=None):
+    """Feed ``inputs`` (``(preds, target, key)`` a step) through ``forward``; ``poison`` (a batch) goes in before
+    step ``L3_POISON_STEP``. Returns the metric, the ms of each step, and the state just before and just after the
+    poisoned batch (host copies)."""
+    m = _l3_make(kind, device, policy)
+    ms, around = [], {}
+    for i, (p, t, key) in enumerate(inputs):
+        if poison is not None and i == L3_POISON_STEP:
+            around["before"] = _j_counts(m)
+            _l3_call(kind, m, *poison)
+            around["after"] = _j_counts(m)
+        t0 = time.perf_counter()
+        _l3_call(kind, m, p, t, key)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return m, ms, around
+
+
+def _l3_call(kind, m, p, t, key):
+    return m(p, t, event_time=key) if kind == "W1" else m(p, t, slot=key)
+
+
+def _l3_inputs(device):
+    """W1's events (score as the prediction of a float label) and J1's tenant ids over the same predictions, with
+    each one's NaN-poisoned batch: the step before the poisoned one's events (its times: no window opens) with every
+    seventh prediction NaN."""
+    import torch
+
+    to = (lambda x: torch.from_numpy(x).to(device))
+    events = _k_events(61, W1_STEPS, W1_ADVANCE, (0.05, (0.0, 150.0)), (0.005, (250.0, 400.0)))
+    tenants, _ = _j_data()
+    out = {}
+    for kind in ("W1", "J1"):
+        steps = []
+        for i, e in enumerate(events):
+            key = e["t"] if kind == "W1" else to(tenants[i % len(tenants)]["slots"])
+            steps.append((to(e["scores"]), to(e["labels"].astype(np.float32)), key))
+        p, t, key = steps[L3_POISON_STEP - 1]
+        bad = p.clone()
+        bad[::7] = float("nan")
+        out[kind] = (steps, (bad, t, key))
+    return out
+
+
+def _l6_worker(rank, port, out):
+    """One of L6's two Gloo processes: a ``Windowed(AUROC(approx="sketch"))`` ring joined to a process-local
+    ``WatermarkAgreement``; rank 1's clock runs ``L6_LAG`` seconds behind rank 0's. The two processes call
+    ``exchange()`` at the same points."""
+    import torch
+    import torch.distributed as dist
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.observability import counters
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+    try:
+        data = _k_events(66 + rank, 3, W1_ADVANCE, (0.0, (0.0, 0.0)), (0.0, (0.0, 0.0)), n=W5_N)
+        agreement = pt.WatermarkAgreement(deadline_s=L6_DEADLINE, label=f"path L L6 rank {rank}")
+        me = "fast" if rank == 0 else "slow"
+
+        def ring(**kw):
+            return pt.Windowed(pt.AUROC(approx="sketch", device="cpu"), window_s=W1_WINDOW_S, num_windows=W5_WINDOWS,
+                               allowed_lateness_s=W1_LATENESS, **kw)
+
+        def feed(m, b, times):
+            m.update(torch.from_numpy(b["scores"]), torch.from_numpy(b["labels"]), event_time=times)
+
+        m, lone = ring(agreement=agreement, rank=me), ring()
+        base = 300.0 - L6_LAG * rank
+        feed(m, data[0], base + data[0]["t"])
+        feed(lone, data[0], base + data[0]["t"])
+        agreement.exchange().result()
+        res = {"wm": m.watermark, "agreed": agreement.agreed()}
+        if rank == 0:
+            # events 200-220 s behind this rank's clock: closed by its local clock, open by the agreed one
+            late_t = m.watermark - 220.0 + data[1]["t"] % 20.0
+            before = (m.dropped_samples, int(m.windowed_rows.sum()))
+            feed(m, data[1], late_t)
+            feed(lone, data[1], late_t)
+            res["held_open"] = {"dropped": m.dropped_samples - before[0], "rows": int(m.windowed_rows.sum()) - before[1],
+                                "n": int(late_t.size), "lone_dropped": lone.dropped_samples}
+        stragglers = counters.snapshot()["wm_stragglers"]
+        time.sleep(L6_DEADLINE + 0.3)  # rank 1's participant is silent past the deadline
+        if rank == 0:
+            feed(m, data[2], m.watermark + 1.0 + data[2]["t"] % 5.0)
+        agreement.exchange().result()
+        res["silent"] = {"agreed": agreement.agreed(), "wm": m.watermark, "excluded": list(agreement.excluded()),
+                         "stragglers": counters.snapshot()["wm_stragglers"] - stragglers}
+        if rank == 1:
+            feed(m, data[2], m.watermark + 10.0 + data[2]["t"] % 5.0)  # the silent rank advances again
+        agreement.exchange().result()
+        res["rejoined"] = {"agreed": agreement.agreed(), "wm": m.watermark, "excluded": list(agreement.excluded()),
+                           "exchanges": agreement.exchanges}
+        with open(out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_path_l6():
+    """L6: two Gloo processes of this script (``--l6-worker``), killed if they outlive their timeout."""
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        outs = [os.path.join(tmp, f"l6_{r}.json") for r in range(2)]
+        env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--l6-worker", str(r), str(port), outs[r]],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        try:
+            logs = [p.communicate(timeout=240)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        if [p.returncode for p in procs] != [0, 0]:
+            raise AssertionError(f"L6 workers failed: {[p.returncode for p in procs]} {logs}")
+        results = []
+        for path in outs:
+            with open(path) as f:
+                results.append(json.load(f))
+    return {"ranks": results, "s": time.perf_counter() - t0}
+
+
+def run_path_l(device, a_batches):
+    """Path L inside the caller's process group: L1-L5 on the card, timed, with what the checks need on the host;
+    L6 in two Gloo processes."""
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.observability import counters
+    from metrics_tpu_torch.parallel import faults, sync
+    from metrics_tpu_torch.utils.exceptions import StateCorruptionError, SyncTimeoutError
+
+    out = {}
+    # L1: lag-k against the synchronous run in this call
+    out["L1"] = {f"lag{k}": _l_lagged(device, a_batches, k) for k in (0, 1, 2)}
+    out["L1"]["auto"] = _l_lagged(device, a_batches, "auto")
+    profiles = {}
+    for k in (0, 2) if device.type == "cuda" else ():
+        col = _main_collection(device, dist_sync_on_step=True)
+        for m in col.values():
+            m.sync_lag = k
+        it = iter(a_batches * 2)
+        profiles[k] = _j_profile(lambda: col(*next(it)))
+    out["L1"]["profiles"] = profiles
+
+    # L2: the guard on the card, every schedule on the collection's sync
+    batches = a_batches[:L_GUARD_STEPS]
+    out["L2"] = {
+        "drop2": _l_guarded(device, batches, sync.SyncGuard(max_retries=2, backoff_s=0.01),
+                            [dict(kind="drop", call=1, times=2)]),
+        "corrupt": _l_guarded(device, batches, sync.SyncGuard(max_retries=2, backoff_s=0.01, check_finite=True),
+                              [dict(kind="corrupt", call=0, times=1)]),
+        "degrade": _l_guarded(device, batches, sync.SyncGuard(deadline_s=5.0, max_retries=1, backoff_s=0.01,
+                                                              policy="degrade"),
+                              [dict(kind="drop", rate=1.0, times=10**6)]),
+        "raise": _l_guarded(device, batches, sync.SyncGuard(max_retries=1, backoff_s=0.01),
+                            [dict(kind="drop", call=0, times=99)], expect=SyncTimeoutError),
+        "deadline": _l_guarded(device, batches, sync.SyncGuard(deadline_s=5.0), []),
+    }
+
+    # L3: integrity over W1's and J1's streams (float-state inners), and J1 itself with a NaN batch
+    l3 = {}
+    for kind, (steps, poison) in _l3_inputs(device).items():
+        counters.reset()
+        clean, clean_ms, _ = _l3_run(kind, device, steps)
+        quarantined, _, around = _l3_run(kind, device, steps, policy="quarantine", poison=poison)
+        part = {"clean": _j_counts(clean), "quarantined": _j_counts(quarantined), "ms": clean_ms, **around,
+                "quarantined_updates": counters.snapshot()["faults"]["quarantined_updates"]}
+        raising = _l3_make(kind, device, "raise")
+        try:
+            _l3_call(kind, raising, *poison)
+            part["raise"] = None
+        except StateCorruptionError as err:
+            part["raise"] = type(err).__name__
+        guarded = _l3_make(kind, device, "quarantine")
+        _l3_call(kind, guarded, *steps[0])
+        with _CountCollectives() as calls:
+            part["host_syncs"], _ = _l_host_syncs(device, lambda: _l3_call(kind, guarded, *steps[1]))
+        part["calls"] = dict(calls)
+        state = faults.corrupt_pytree(clean._current_state(), fraction=0.25)
+        rows = next(n for n in state if n.endswith("_rows"))
+        state[rows] = state[rows].clone()
+        state[rows][:3] = torch.iinfo(state[rows].dtype).max - 1
+        part["card_counts"] = [int(c) for c in pt.state_integrity_counts(state)]
+        part["cpu_counts"] = [int(c) for c in pt.state_integrity_counts({k: v.cpu() for k, v in state.items()})]
+        l3[kind] = part
+    j1 = pt.Keyed(pt.AUROC(approx="sketch", device=device), num_slots=J_SLOTS)
+    j1.check_finite = "raise"
+    steps, poison = _l3_inputs(device)["J1"]
+    j1(poison[0], poison[1].long(), slot=poison[2])  # NaN scores into a sketch: the binning drops them
+    l3["J1_sketch_counts"] = [int(c) for c in pt.state_integrity_counts(j1._current_state())]
+    out["L3"] = l3
+
+    # L4: checkpoint at step 10, restore, replay from step 7 with guarded_update
+    unbroken = _main_collection(device, dist_sync_on_step=True)
+    unbroken.persistent(True)
+    checkpoint = None
+    for i, b in enumerate(a_batches):
+        unbroken.update(*b)
+        if i + 1 == L4_CHECKPOINT:
+            checkpoint = unbroken.state_dict()
+    want = {k: v.item() for k, v in unbroken.compute().items()}
+    restored = _main_collection(device, dist_sync_on_step=True)
+    restored.persistent(True)
+    restored.load_state_dict(checkpoint)
+    t0 = time.perf_counter()
+    applied = [restored.guarded_update(i, *a_batches[i]) for i in range(L4_REPLAY_FROM, A_STEPS)]
+    _sync(device)
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v.item() for k, v in restored.compute().items()}
+    acc = _main_collection(device)["Accuracy"]
+    acc.load_state_dict({k.split(".", 1)[1]: v for k, v in checkpoint.items() if k.startswith("Accuracy.")})
+    try:
+        acc.guarded_update(L4_CHECKPOINT - 1, *a_batches[L4_CHECKPOINT], span_end=L4_CHECKPOINT + 1)
+        straddle = None
+    except ValueError as err:
+        straddle = str(err)
+    out["L4"] = {"want": want, "got": got, "applied": applied, "watermark": restored.epoch_watermark,
+                 "straddle": straddle, "replay_ms": replay_ms}
+
+    # L5: the deferred pure view; the live state is written in place after dispatch
+    col = _main_collection(device)
+    pure = col.pure()
+    state = pure.update(pure.init(), *a_batches[0])
+    state = pure.update(state, *a_batches[1])
+    want = pure.sync(state)
+    with _CountCollectives() as dispatch_calls:
+        t0 = time.perf_counter()
+        dispatch_syncs, handle = _l_host_syncs(device, lambda: col.sync_state(state, deferred=True))
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+    for entry in state.values():
+        for value in entry.values():
+            value.add_(7)  # in place, while the collective may still run
+    t0 = time.perf_counter()
+    fence_syncs, got = _l_host_syncs(device, handle.result)
+    fence_ms = (time.perf_counter() - t0) * 1e3
+    out["L5"] = {"equal": all(torch.equal(got[k][n], want[k][n]) for k in want for n in want[k]),
+                 "values_equal": {k: v.item() for k, v in pure.compute(got).items()}
+                 == {k: v.item() for k, v in pure.compute(want).items()},
+                 "dispatch_calls": dict(dispatch_calls), "dispatch_ms": dispatch_ms, "fence_ms": fence_ms,
+                 "watermark": handle.watermark, "host_syncs": (dispatch_syncs, fence_syncs)}
+
+    # L6: the agreement across two processes
+    out["L6"] = _run_path_l6()
+    return out
+
+
+def check_path_l(result):
+    timings = {}
+    print(f"[15] path L: the guarded and deferred sync plane at path A's size ({A_BATCH} x {A_CLASSES}, {A_STEPS}"
+          f" steps) and W1's ({K_N:,} events a step)")
+
+    # L1
+    run = result["L1"]
+    sync_run = run["lag0"]
+    for k in (1, 2):
+        lag = run[f"lag{k}"]
+        want = [sync_run["values"][i - k] if i >= k else None for i in range(A_STEPS)]
+        _check(all(lag["values"][i] == want[i] for i in range(k, A_STEPS)) and lag["epoch"] == sync_run["epoch"],
+               f"L1 sync_lag={k}: every step from {k} on equals the synchronous run's value {k} steps back bit for"
+               f" bit, and the epoch compute() after the drain equals the synchronous epoch")
+    _check(run["auto"]["epoch"] == sync_run["epoch"], "L1 sync_lag='auto': the epoch equals the synchronous epoch")
+    for k, label in ((0, "synchronous"), (1, "sync_lag=1"), (2, "sync_lag=2"), ("auto", "sync_lag='auto'")):
+        part = run[k if k == "auto" else f"lag{k}"]
+        per_step = part["calls"][-1]
+        timings[f"L1_{label}"] = {"ms_per_step": statistics.median(part["ms"]), "all_reduce_per_step":
+                                  per_step["all_reduce"]}
+        print(f"    L1 {label}: median {statistics.median(part['ms']):.3f} ms/step (first {part['ms'][0]:.1f});"
+              f" {per_step['all_reduce']} all_reduce / {per_step['all_gather']} all_gather a step;"
+              f" epoch {part['epoch_calls']}" + (f"; chosen lag {part['chosen']}" if k == "auto" else ""))
+    for k, prof in run["profiles"].items():
+        device = f"{prof['device_ms']:.3f} device ms" if prof["device_ms"] else "device time not measured"
+        print(f"    L1 profiled step, sync_lag={k}: {device}, {prof['ops']:.0f} operations,"
+              f" {prof['host_syncs']} synchronizing calls {prof['sync_sites'][:3]}")
+        timings[f"L1_lag{k}_host_syncs"] = prof["host_syncs"]
+    timings["L1_auto_lag"] = run["auto"]["chosen"]
+
+    # L2
+    clean = run["lag0"]["values"][:L_GUARD_STEPS]
+    l2 = result["L2"]
+    zero = {"sync_retries": 0, "sync_deadline_exceeded": 0, "degraded_computes": 0, "quarantined_updates": 0}
+    _check(l2["drop2"]["values"] == clean and l2["drop2"]["faults"] == dict(zero, sync_retries=2),
+           "L2: a transient drop x2 records sync_retries 2 and gives values bit-equal to the unfaulted run")
+    _check(l2["corrupt"]["values"] == clean and l2["corrupt"]["faults"] == dict(zero, sync_retries=1),
+           "L2: a corrupt payload under check_finite=True is retried once, values bit-equal")
+    _check(l2["degrade"]["values"] == clean and l2["degrade"]["faults"]["degraded_computes"] >= L_GUARD_STEPS,
+           f"L2: a persistent drop under policy='degrade' gives local-only values (one rank: the synced ones),"
+           f" degraded_computes {l2['degrade']['faults']['degraded_computes']}, {l2['degrade']['ms']:.1f} ms/step")
+    _check(l2["raise"].get("raised") == "SyncTimeoutError",
+           f"L2: a persistent drop under policy='raise' raises SyncTimeoutError ({l2['raise'].get('s', 0):.2f} s)")
+    _check(l2["deadline"]["values"] == clean and l2["deadline"]["faults"] == zero,
+           f"L2: the deadline path (async NCCL work, polled) gives the unfaulted values at"
+           f" {l2['deadline']['ms']:.3f} ms/step")
+    for name, part in l2.items():
+        if "calls" in part:
+            print(f"    L2 {name}: {part['ms']:.3f} ms/step; {part['calls']['all_reduce']:g} all_reduce /"
+                  f" {part['calls']['all_gather']:g} all_gather a step (epoch excluded); {part['host_syncs']}"
+                  f" synchronizing calls in its last step; faults {part['faults']}")
+    timings["L2_ms_per_step"] = {k: v.get("ms") for k, v in l2.items()}
+
+    # L3
+    for kind, label in (("W1", "Windowed(MeanSquaredError()) over W1's stream"),
+                        ("J1", f"Keyed(MeanSquaredError(), {J_SLOTS:,}) over J1's tenants")):
+        part = result["L3"][kind]
+        _k_states_equal(f"L3 {kind} at the poisoned batch", part["after"], part["before"])
+        _k_states_equal(f"L3 {kind} after the stream", part["quarantined"], part["clean"], rtol=RTOL_L3)
+        _check(part["quarantined_updates"] == 1,
+               f"L3 {label}: check_finite='quarantine' drops the NaN-poisoned batch: the slabs after it are bit-equal"
+               f" to the slabs before it, and after the stream equal the run without it (counts exactly, float32 sums"
+               f" to rtol {RTOL_L3}); quarantined_updates + 1 ({statistics.median(part['ms']):.3f} ms/step)")
+        _check(part["raise"] == "StateCorruptionError", f"L3 {label}: check_finite='raise' raises StateCorruptionError")
+        _check(part["card_counts"] == part["cpu_counts"] and min(part["card_counts"]) > 0,
+               f"L3 {kind}: state_integrity_counts of a corrupted state on the card {part['card_counts']} equal the"
+               f" CPU's")
+        print(f"    L3 {kind}: {statistics.median(part['ms']):.3f} ms/step (check_finite off); a quarantine-policy step"
+              f" makes {part['calls']['all_reduce']} all_reduce / {part['calls']['all_gather']} all_gather and"
+              f" {part['host_syncs']} synchronizing calls")
+        timings[f"L3_{kind}_ms_per_step"] = statistics.median(part["ms"])
+    _check(result["L3"]["J1_sketch_counts"] == [0, 0],
+           "L3 J1 Keyed(AUROC sketch): NaN scores leave the integer sketch counts clean (the binning drops them),"
+           " so check_finite has nothing to quarantine there")
+
+    # L4
+    l4 = result["L4"]
+    replayed = A_STEPS - L4_REPLAY_FROM
+    _check(l4["got"] == l4["want"] and l4["applied"] == [False] * (L4_CHECKPOINT - L4_REPLAY_FROM)
+           + [True] * (A_STEPS - L4_CHECKPOINT) and l4["watermark"] == A_STEPS,
+           f"L4: restored at step {L4_CHECKPOINT}, replayed from step {L4_REPLAY_FROM} with guarded_update"
+           f" ({replayed} calls, {l4['replay_ms']:.1f} ms): steps {L4_REPLAY_FROM}-{L4_CHECKPOINT - 1} no-ops, the"
+           f" epoch equals the unbroken run bit for bit")
+    _check(l4["straddle"] is not None and "straddles the epoch watermark" in l4["straddle"],
+           "L4: a span straddling the watermark raises ValueError")
+
+    # L5
+    l5 = result["L5"]
+    _check(l5["equal"] and l5["values_equal"] and l5["dispatch_calls"]["all_reduce"] == 1,
+           f"L5: MetricCollection.pure()'s sync_state(deferred=True) enters one all_reduce at dispatch"
+           f" ({l5['dispatch_ms']:.3f} ms) and resolves ({l5['fence_ms']:.3f} ms) to the synchronous result although"
+           f" the live state was written in place after dispatch")
+    print(f"    L5: synchronizing calls at dispatch {l5['host_syncs'][0]}, at result() {l5['host_syncs'][1]}")
+    timings["L5"] = {"dispatch_ms": l5["dispatch_ms"], "fence_ms": l5["fence_ms"]}
+
+    # L6
+    fast, slow = result["L6"]["ranks"]
+    _check(fast["agreed"] == slow["agreed"] == slow["wm"] < fast["wm"] - L6_LAG + W1_ADVANCE,
+           f"L6: two Gloo processes agree on the minimum, the slow rank's clock {slow['wm']:.1f} (fast"
+           f" {fast['wm']:.1f})")
+    held = fast["held_open"]
+    _check(held["dropped"] == 0 and held["rows"] == held["n"] and held["lone_dropped"] > 0,
+           f"L6: {held['n']} events 200-220 s behind the fast rank's clock stay in their windows under the agreed"
+           f" clock (a ring without the agreement drops {held['lone_dropped']})")
+    _check(slow["silent"]["excluded"] == ["slow"] and slow["silent"]["stragglers"] == 1
+           and fast["silent"]["agreed"] == fast["silent"]["wm"],
+           "L6: the silent rank is excluded past its deadline (wm_stragglers + 1) and the fast rank's agreed clock"
+           " advances to its own")
+    _check(slow["rejoined"]["excluded"] == [] and fast["rejoined"]["exchanges"] == slow["rejoined"]["exchanges"] == 3
+           and slow["rejoined"]["agreed"] > slow["agreed"],
+           f"L6: the silent rank rejoins on its next advance; 3 exchange rounds on each process"
+           f" ({result['L6']['s']:.1f} s with the workers' start)")
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -5367,6 +5839,7 @@ def main() -> int:
         "path_k_device_share": {k: v["device_share"] for k, v in paths["k"].items()},
         "path_k_peak_bytes": {k: v["peak_bytes"] for k, v in paths["k"].items() if k != "W6"},
         "path_k_forward_batched_ms": paths["k"]["W6"]["forward_batched_ms"],
+        "path_l_ms_per_step": {k: v["ms_per_step"] for k, v in paths["l"].items() if k.startswith("L1_sync")},
     }
 
     print(json.dumps({"kernels": [kernel]}))
@@ -5377,4 +5850,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--l6-worker":  # one of path L's two Gloo processes
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(_l6_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

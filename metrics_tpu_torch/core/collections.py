@@ -33,7 +33,11 @@ Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
 * ``state_dict`` / ``load_state_dict`` with the ``_compute_group_manifest``:
   one copy of each group's states plus a ``{member: representative}`` map,
   readable by the JAX package and back;
-* ``clone(prefix=)``, a deep copy under another prefix.
+* ``clone(prefix=)``, a deep copy under another prefix;
+* ``epoch_watermark`` (the least member watermark) and ``guarded_update``;
+  ``sync_lag >= 1`` members take no part in the shared per-step sync (their
+  syncs are deferred on their own handle rings), and ``sync_state(...,
+  deferred=True)`` returns one handle that resolves to the nested state.
 """
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Set, Tuple, Union
@@ -42,6 +46,7 @@ import numpy as np
 from torch import nn
 
 from metrics_tpu_torch.core.metric import Metric, PureMetric
+from metrics_tpu_torch.parallel.deferred import deferred_sync_state
 from metrics_tpu_torch.parallel.sync import all_reduce_state, dist_active
 from metrics_tpu_torch.utils.checks import shared_input_format
 from metrics_tpu_torch.utils.data import tree_stack
@@ -167,7 +172,8 @@ class MetricCollection(nn.ModuleDict):
         by_rep: Dict[str, list] = {}
         for k, rep in shared.items():
             m = self[k]
-            if m.dist_sync_on_step and m.compute_on_step and (m.dist_sync_fn is not None or active):
+            if (m.dist_sync_on_step and m.compute_on_step and not m.sync_lag
+                    and (m.dist_sync_fn is not None or active)):
                 by_rep.setdefault(rep, []).append(k)
         out: Dict[str, str] = {}
         for rep, members in by_rep.items():
@@ -271,7 +277,25 @@ class MetricCollection(nn.ModuleDict):
             m._set_state(m.merge_states(m._current_state(), deltas[rep]))
         self._lockstep_record()
 
+    # -------------------------------------------------- preemption-safe resume
+    @property
+    def epoch_watermark(self) -> int:
+        """The collection's resume point: the least member watermark (a step
+        counts as applied once every member holds it)."""
+        return min((m._epoch_watermark for m in self.values()), default=0)
+
+    def guarded_update(self, step_index: int, *args: Any, **kwargs: Any) -> bool:
+        """Idempotent collection update (see ``Metric.guarded_update``): the
+        batch goes to every member only if ``step_index`` is not below the
+        collection watermark."""
+        if step_index < self.epoch_watermark:
+            return False
+        self.update(*args, **kwargs)
+        return True
+
     def compute(self) -> Dict[str, Any]:
+        for m in self.values():  # entry order: in-flight deferred syncs resolve before the epoch sync
+            m._drain_handle_ring()
         shared = self._grouped_epoch_sync()
         return {self._set_prefix(k): shared[k] if k in shared else m.compute() for k, m in self.items()}
 
@@ -356,21 +380,33 @@ class MetricCollection(nn.ModuleDict):
     def merge_states(self, a: Dict[str, Dict[str, Any]], b: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
         return {k: self[k].merge_states(a[k], b[k]) for k in a}
 
-    def sync_state(self, state: Dict[str, Dict[str, Any]], group: Optional[Any] = None) -> Dict[str, Dict[str, Any]]:
+    def sync_state(self, state: Dict[str, Dict[str, Any]], group: Optional[Any] = None,
+                   deferred: bool = False) -> Any:
         """The cross-rank reduction of the joint state over ``group`` (default:
         the first entry's ``process_group``): the leaves of every entry go
         through ONE call of the bucketed plane, so the whole collection makes
         one ``all_reduce`` per (dtype, op) bucket and one gather for its
-        gather states. The members' own states are left as they are."""
+        gather states. The members' own states are left as they are.
+
+        ``deferred=True`` enters the same collectives without waiting and
+        returns one :class:`~metrics_tpu_torch.parallel.deferred.SyncHandle`
+        that resolves to the same nested ``{member: {state: value}}`` dict."""
         flat = {(k, n): v for k, s in state.items() for n, v in s.items()}
         reductions = {(k, n): self[k]._reductions[n] for k, s in state.items() for n in s}
         layouts = {(k, n): self[k]._cat_layouts[n] for k, s in state.items() for n in s if n in self[k]._cat_layouts}
         first = self[next(iter(state))] if state else None
         if group is None and first is not None:
             group = first.process_group
-        synced = all_reduce_state(flat, reductions, group=group, layouts=layouts,
-                                  device=None if first is None else first.device)
-        return {k: {n: synced[(k, n)] for n in s} for k, s in state.items()}
+        device = None if first is None else first.device
+        structure = {k: tuple(s) for k, s in state.items()}
+
+        def nest(synced: Dict[Any, Any]) -> Dict[str, Dict[str, Any]]:
+            return {k: {n: synced[(k, n)] for n in names} for k, names in structure.items()}
+
+        if deferred:
+            return deferred_sync_state(flat, reductions, group=group, watermark=self.epoch_watermark, finish=nest,
+                                       layouts=layouts, device=device)
+        return nest(all_reduce_state(flat, reductions, group=group, layouts=layouts, device=device))
 
     def pure(self) -> PureMetric:
         """The pure view of the collection over the joint state."""

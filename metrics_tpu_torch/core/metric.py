@@ -32,6 +32,21 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
   the per-step batch values stacked and the epoch value cached. The JAX
   package runs it as one ``lax.scan`` / ``vmap`` program; here it is an eager
   loop of ``forward`` calls with the same per-step values;
+* the integrity guard: :func:`nonfinite_count`, :func:`saturated_count`,
+  :func:`state_integrity_counts`, and ``check_finite`` (``"warn"`` /
+  ``"raise"`` / ``"quarantine"``) after every update, forward and sync. The
+  quarantine restores a copy of the state taken before the update (the port's
+  updates write in place, so a reference would not do);
+* preemption-safe replay: ``epoch_watermark`` and ``guarded_update(step,
+  ..., span_end=)``;
+* the deferred per-step sync: ``sync_lag=k`` (or ``"auto"``, with a
+  :class:`~metrics_tpu_torch.parallel.deferred.LagController`) keeps a ring of
+  ``k`` in-flight :class:`~metrics_tpu_torch.parallel.deferred.SyncHandle` s
+  and reads each step's synced value ``k`` steps late; the epoch ``compute()``
+  drains the ring first. Handles never travel through ``reset``, ``clone``,
+  pickle or deepcopy. ``sync_state(state, group, deferred=True)`` returns a
+  handle;
+* ``astype`` and ``state_pytree``;
 * ``reset``, and ``state_dict`` / ``load_state_dict`` in the JAX package's key
   layout (host numpy values, a buffer as ``{"data", "count"}``, a sketch as
   ``{"sketch_counts"}``, plus ``_count_bound`` and ``_epoch_watermark``), so a
@@ -49,7 +64,9 @@ States live on ``self.device``: ``cuda`` unless the caller passes
 """
 import functools
 import inspect
+import time
 from abc import ABC, abstractmethod
+from collections import deque
 from copy import deepcopy
 from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
@@ -57,6 +74,7 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch.observability.counters import record_deferred_depth, record_fault
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_append, buffer_init
 from metrics_tpu_torch.parallel.cms import CMSSpec, cms_init
 from metrics_tpu_torch.parallel.qsketch import QSketchSpec, qsketch_init
@@ -73,11 +91,16 @@ from metrics_tpu_torch.parallel.sync import (
 )
 from metrics_tpu_torch.utils.data import tree_stack
 from metrics_tpu_torch.utils.device import check_same_device, resolve_device
+from metrics_tpu_torch.utils.exceptions import StateCorruptionError
+from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 State = Dict[str, Any]
 
 # attributes holding the bound update/compute wrappers: rebuilt, never copied
 _WRAPPER_ATTRS = ("update", "compute", "_update_impl", "_compute_impl")
+# live futures and machine-local measurements: they never travel through a
+# pickle, a deepcopy or a clone (a copy starts with no in-flight sync)
+_LIVE_ATTRS = ("_handle_ring", "_lag_controller")
 
 # instance attributes that are no update config: ``nn.Module``'s own, the
 # wrappers, caches, counters and sync settings, and the state registries
@@ -86,6 +109,7 @@ _NON_CONFIG_ATTRS = frozenset(vars(nn.Module())) | frozenset(_WRAPPER_ATTRS) | f
     "_update_signature", "_computed", "_forward_cache", "_count_bound", "_epoch_watermark",
     "_to_sync", "_in_forward", "compute_on_step", "dist_sync_on_step", "process_group", "dist_sync_fn",
     "_defaults", "_persistent", "_reductions", "_cat_layouts", "device",
+    "check_finite", "sync_lag", "_handle_ring", "_lag_controller", "_state_dtype",
 })
 
 
@@ -120,6 +144,79 @@ class _BufferSpec(NamedTuple):
 
 class _Unfingerprintable(Exception):
     pass
+
+
+# ---------------------------------------------------- state-integrity scanning
+CHECK_FINITE_POLICIES = (None, "warn", "raise", "quarantine")
+
+
+def _state_tensors(state: Any) -> list:
+    """Every tensor of a state (a dict, a list, a PaddedBuffer, a sketch)."""
+    if isinstance(state, Tensor):
+        return [state]
+    if isinstance(state, dict):
+        return [t for v in state.values() for t in _state_tensors(v)]
+    if isinstance(state, (list, tuple)):  # a sketch is a NamedTuple of its counts
+        return [t for v in state for t in _state_tensors(v)]
+    if isinstance(state, PaddedBuffer):
+        return [state.data, state.count]
+    return []
+
+
+def _count(tensors: list, hits: list) -> Tensor:
+    """The number of set elements over ``hits``, an int64 scalar on the device
+    of the state's first tensor (the CPU for an empty state)."""
+    total = torch.zeros((), dtype=torch.int64, device=tensors[0].device if tensors else None)
+    for hit in hits:
+        total = total + hit.sum().to(device=total.device, dtype=torch.int64)
+    return total
+
+
+def nonfinite_count(state: Any) -> Tensor:
+    """The number of non-finite (NaN / Inf) elements over every float tensor of
+    a state (an int64 scalar tensor on the state's device; nothing is read)."""
+    tensors = _state_tensors(state)
+    return _count(tensors, [~torch.isfinite(t) for t in tensors if t.is_floating_point() or t.is_complex()])
+
+
+def saturated_count(state: Any) -> Tensor:
+    """The number of integer elements within ``max(iinfo.max // 2048, 1)`` of
+    their dtype's range: pre-wraparound corruption of a count state (an int64
+    scalar tensor; nothing is read)."""
+    tensors, hits = _state_tensors(state), []
+    for t in tensors:
+        if t.is_floating_point() or t.is_complex() or t.dtype == torch.bool:
+            continue
+        info = torch.iinfo(t.dtype)
+        margin = max(info.max // 2048, 1)
+        hits.append((t >= info.max - margin) | (t <= info.min + margin))
+    return _count(tensors, hits)
+
+
+def state_integrity_counts(state: Any) -> tuple:
+    """``(nonfinite, saturated)`` element counts: the scan behind ``check_finite``."""
+    return nonfinite_count(state), saturated_count(state)
+
+
+def _validate_sync_lag(value: Any, dist_sync_on_step: bool) -> Any:
+    """An int in ``[0, MAX_SYNC_LAG]`` or ``"auto"``; anything else raises."""
+    from metrics_tpu_torch.parallel.deferred import MAX_SYNC_LAG
+
+    if value == "auto":
+        lag: Any = "auto"
+    else:
+        if isinstance(value, bool) or not isinstance(value, int):
+            raise ValueError(f"`sync_lag` must be an int in [0, {MAX_SYNC_LAG}] or 'auto', got {value!r}")
+        if not 0 <= value <= MAX_SYNC_LAG:
+            raise ValueError(
+                f"`sync_lag` must be in [0, {MAX_SYNC_LAG}] (the handle-ring depth is bounded so the"
+                f" rendezvous pool and the background host plane never wedge) or 'auto', got {value!r}"
+            )
+        lag = int(value)
+    if lag and not dist_sync_on_step:
+        raise ValueError(f"`sync_lag={lag!r}` defers the per-step sync inside `forward`; it requires"
+                         " `dist_sync_on_step=True`")
+    return lag
 
 
 class PureMetric(NamedTuple):
@@ -185,6 +282,26 @@ class Metric(nn.Module, ABC):
         capacity: fixed capacity for cat (list) states. With it they become
             PaddedBuffers: declared with ``item_shape`` at ``add_state``, or
             promoted at the first append, which fixes the item shape and dtype.
+        check_finite: the integrity guard (``None``: off). After every update
+            and forward, and after each sync, the state is scanned for
+            non-finite floats and near-saturated integer counts
+            (:func:`state_integrity_counts`; one scalar read). ``"warn"``
+            warns, ``"raise"`` throws ``StateCorruptionError``,
+            ``"quarantine"`` restores the state from before the update (the
+            batch is dropped, ``quarantined_updates`` counts it) or, after a
+            sync, keeps the local state. Library metrics do not forward the
+            argument: set the ``check_finite`` attribute after construction.
+        sync_lag: the deferred per-step sync of ``dist_sync_on_step`` (``0``:
+            synchronous). With ``k`` in ``[1, MAX_SYNC_LAG]`` every forward
+            enters its delta's sync without waiting and pushes the handle
+            onto a ring; once the ring holds more than ``k`` the oldest
+            resolves, and the step returns the value computed from it, which
+            is the synchronous plane's value ``k`` steps back. Steps
+            ``0 .. k-1`` return the local batch value. The accumulator never
+            lags: the epoch ``compute()`` drains the ring in entry order and
+            syncs afresh. ``"auto"`` lets a ``LagController`` choose ``k``
+            from the measured blocking waits. Library metrics: set the
+            ``sync_lag`` attribute after construction.
     """
 
     # Attr names that feed ``update``; a subclass declares them to opt its
@@ -206,6 +323,8 @@ class Metric(nn.Module, ABC):
         dist_sync_fn: Optional[Callable] = None,
         device: Optional[Union[str, torch.device]] = None,
         capacity: Optional[int] = None,
+        check_finite: Optional[str] = None,
+        sync_lag: Any = 0,
     ):
         super().__init__()
         self.device = resolve_device(device)
@@ -214,6 +333,13 @@ class Metric(nn.Module, ABC):
         self.dist_sync_on_step = dist_sync_on_step
         self.process_group = process_group
         self.dist_sync_fn = dist_sync_fn
+        if check_finite not in CHECK_FINITE_POLICIES:
+            raise ValueError(f"`check_finite` must be one of {CHECK_FINITE_POLICIES}, got {check_finite!r}")
+        self.check_finite = check_finite
+        self.sync_lag = _validate_sync_lag(sync_lag, dist_sync_on_step)
+        self._handle_ring: deque = deque()  # in-flight SyncHandles, oldest first (sync_lag >= 1)
+        self._lag_controller = None  # a LagController, built at first use (sync_lag="auto")
+        self._state_dtype: Optional[torch.dtype] = None  # the last astype target, re-applied at reset
         self._to_sync = True
         self._in_forward = False
         self._computed = None
@@ -376,13 +502,23 @@ class Metric(nn.Module, ABC):
         finally:
             self._set_state(saved)
 
-    def sync_state(self, state: State, group: Optional[Any] = None) -> State:
+    def sync_state(self, state: State, group: Optional[Any] = None, deferred: bool = False) -> Any:
         """The cross-rank reduction of ``state`` over ``group`` (default: the
         metric's ``process_group``) through the bucketed plane: one
         ``all_reduce`` per (dtype, op) bucket, one gather for the list, stack
-        and buffer states. The metric's own state is left as it is."""
-        return all_reduce_state(state, self._reductions, group=self.process_group if group is None else group,
-                                layouts=self._cat_layouts, device=self.device)
+        and buffer states. The metric's own state is left as it is.
+
+        ``deferred=True`` enters the same collectives without waiting and
+        returns a :class:`~metrics_tpu_torch.parallel.deferred.SyncHandle`
+        whose ``result()`` is the synced state; the buckets reduce copies, so
+        the caller may keep updating ``state`` in place meanwhile."""
+        group = self.process_group if group is None else group
+        if deferred:
+            from metrics_tpu_torch.parallel.deferred import deferred_sync_state
+
+            return deferred_sync_state(state, self._reductions, group=group, watermark=self._epoch_watermark,
+                                       layouts=self._cat_layouts, device=self.device)
+        return all_reduce_state(state, self._reductions, group=group, layouts=self._cat_layouts, device=self.device)
 
     def pure(self) -> PureMetric:
         """The pure view: ``init`` / ``update`` / ``compute`` / ``merge`` /
@@ -406,8 +542,10 @@ class Metric(nn.Module, ABC):
         self._forward_cache = None
         check_same_device(self.device, *args, *kwargs.values())
         self._note_rows(args, kwargs)
+        revert_to = self._pre_update_snapshot()
         delta = self._run_update_on_state(self.init_state(), *args, **kwargs)
         self._set_state(self.merge_states(self._current_state(), delta))
+        self._guard_state_integrity("forward", revert_to)
         if not self.compute_on_step:
             return None
         self._forward_cache = self._compute_on(delta, sync=self.dist_sync_on_step)
@@ -504,19 +642,110 @@ class Metric(nn.Module, ABC):
         """
         self._count_bound += int(amount)
 
+    # -------------------------------------------------- preemption-safe resume
+    @property
+    def epoch_watermark(self) -> int:
+        """Batches folded into the accumulator this epoch: the next step index
+        this metric expects. Persisted by ``state_dict``."""
+        return self._epoch_watermark
+
+    def guarded_update(self, step_index: int, *args: Any, span_end: Optional[int] = None, **kwargs: Any) -> bool:
+        """Idempotent update: apply the batch only if ``step_index`` is not
+        already folded in (returns whether it was applied). After a restore,
+        replaying from any step at or before the checkpoint cannot
+        double-count.
+
+        ``span_end``: the one ``update`` carries the folded steps
+        ``step_index .. span_end`` (inclusive) and the watermark advances past
+        ``span_end``. All or nothing: a span below the watermark is a no-op, a
+        span that straddles it raises ``ValueError``."""
+        if span_end is None:
+            if step_index < self._epoch_watermark:
+                return False
+            self.update(*args, **kwargs)
+            return True
+        if span_end < step_index:
+            raise ValueError(f"span_end {span_end} < step_index {step_index}")
+        if span_end < self._epoch_watermark:
+            return False
+        if step_index < self._epoch_watermark:
+            raise ValueError(
+                f"span [{step_index}, {span_end}] straddles the epoch watermark {self._epoch_watermark}: split at"
+                " the watermark and re-fold only the unapplied suffix"
+            )
+        self.update(*args, **kwargs)  # advances the watermark by one step...
+        self._epoch_watermark += span_end - step_index  # ...plus the span's rest
+        return True
+
     # ------------------------------------------------------------------ sync
-    def _synced_state(self, dist_sync_fn: Optional[Callable] = None, state: Optional[State] = None) -> State:
+    def _synced_state(self, dist_sync_fn: Optional[Callable] = None, state: Optional[State] = None,
+                      timer: Optional[Callable[[float], None]] = None) -> State:
         """The cross-rank reduction of ``state`` (default: the current state, which stays as it is)."""
         state = self._current_state() if state is None else state
         if dist_sync_fn is not None:
-            return host_gather(state, self._reductions, dist_sync_fn)
+            return host_gather(state, self._reductions, dist_sync_fn, timer=timer)
         return all_reduce_state(
-            state, self._reductions, group=self.process_group, layouts=self._cat_layouts, device=self.device
+            state, self._reductions, group=self.process_group, layouts=self._cat_layouts, device=self.device,
+            timer=timer,
         )
 
-    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None) -> None:
-        """Replace the current state by its cross-rank reduction."""
-        self._set_state(self._synced_state(dist_sync_fn))
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None,
+                   timer: Optional[Callable[[float], None]] = None) -> None:
+        """Replace the current state by its cross-rank reduction, then apply the
+        ``check_finite`` policy (``quarantine`` keeps the local state when the
+        synced one is poisoned; the sync never writes the local tensors)."""
+        local = self._current_state()
+        self._set_state(self._synced_state(dist_sync_fn, timer=timer))
+        self._guard_state_integrity("sync", local)
+
+    def _dispatch_deferred(self, dist_sync_fn: Optional[Callable]) -> Any:
+        """Enter this step's sync without waiting: a handle of the host plane
+        (``dist_sync_fn``) or of the bucketed plane."""
+        from metrics_tpu_torch.parallel.deferred import deferred_host_gather, deferred_sync_state
+
+        state = self._current_state()
+        if dist_sync_fn is not None:
+            return deferred_host_gather(state, self._reductions, gather_fn=dist_sync_fn,
+                                        watermark=self._epoch_watermark)
+        return deferred_sync_state(state, self._reductions, group=self.process_group,
+                                   watermark=self._epoch_watermark, layouts=self._cat_layouts, device=self.device)
+
+    # ------------------------------------------------- the lag-k handle ring
+    def _resolve_sync_lag(self) -> int:
+        """This step's ring depth: the static ``sync_lag``, or the controller's
+        verdict for ``"auto"`` (built at first use)."""
+        lag = self.sync_lag
+        if lag == "auto":
+            if self._lag_controller is None:
+                from metrics_tpu_torch.parallel.deferred import LagController
+
+                self._lag_controller = LagController()
+            return self._lag_controller.lag
+        # the attribute-set path (library metrics) validates as loudly as __init__
+        return _validate_sync_lag(lag, self.dist_sync_on_step) if lag else 0
+
+    def _drain_handle_ring(self) -> None:
+        """Resolve every in-flight handle in entry order and drop the views; a
+        raise-policy exhaustion surfaces here."""
+        ring = self._handle_ring
+        while ring:
+            ring.popleft().result()
+
+    def _lagged_sync(self, dist_sync_fn: Optional[Callable], lag: int) -> Optional[State]:
+        """The deferred per-step sync: enter this step's sync, push its handle,
+        and resolve the oldest handles until the ring is back at ``lag``.
+        Returns the newest resolved view, or ``None`` while the ring fills."""
+        ring = self._handle_ring
+        ring.append(self._dispatch_deferred(dist_sync_fn))
+        view = None
+        while len(ring) > lag:
+            oldest = ring.popleft()
+            t0 = time.perf_counter()
+            view = oldest.result()
+            if self._lag_controller is not None and self.sync_lag == "auto":
+                self._lag_controller.observe((time.perf_counter() - t0) * 1e3)
+        record_deferred_depth(getattr(self, "_metric_label", type(self).__name__), len(ring))
+        return view
 
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
@@ -524,9 +753,49 @@ class Metric(nn.Module, ABC):
             self._computed = None
             check_same_device(self.device, *args, *kwargs.values())
             self._note_rows(args, kwargs)
-            return update(*args, **kwargs)
+            revert_to = self._pre_update_snapshot()
+            out = update(*args, **kwargs)
+            self._guard_state_integrity("update", revert_to)
+            return out
 
         return wrapped_func
+
+    # -------------------------------------------------- state-integrity guard
+    def _integrity_state(self) -> State:
+        """The state view the ``check_finite`` scan runs over: the current
+        state. Wrappers whose untouched rows rest at dtype extremes mask them."""
+        return self._current_state()
+
+    def _pre_update_snapshot(self) -> Optional[State]:
+        """A copy of the state, taken only under the quarantine policy."""
+        if self.check_finite == "quarantine":
+            from metrics_tpu_torch.parallel.deferred import snapshot_state
+
+            return snapshot_state(self._current_state())
+        return None
+
+    def _guard_state_integrity(self, where: str, revert_to: Optional[State] = None) -> None:
+        """Apply the ``check_finite`` policy to the current state (one host
+        read of the two counts)."""
+        policy = self.check_finite
+        if not policy:
+            return
+        nonfinite, saturated = torch.stack(state_integrity_counts(self._integrity_state())).tolist()
+        if not nonfinite and not saturated:
+            return
+        detail = (
+            f"{self.__class__.__name__} state failed the integrity scan after {where}: "
+            f"{nonfinite} non-finite float element(s), {saturated} near-saturated integer count(s)."
+        )
+        if policy == "raise":
+            raise StateCorruptionError(detail)
+        if policy == "quarantine" and revert_to is not None:
+            self._set_state(revert_to)
+            self._computed = None
+            record_fault("quarantined_updates")
+            rank_zero_warn(detail + " The batch delta was quarantined (accumulator unchanged).", UserWarning)
+            return
+        rank_zero_warn(detail, UserWarning)
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
@@ -537,8 +806,18 @@ class Metric(nn.Module, ABC):
                 return self._computed
             synced = self._to_sync and (self.dist_sync_fn is not None or dist_active())
             cache = self._current_state()
-            if synced:
-                self._sync_dist(self.dist_sync_fn)
+            lag = self._resolve_sync_lag() if synced and self.sync_lag and self._in_forward else 0
+            if lag:
+                view = self._lagged_sync(self.dist_sync_fn, lag)
+                synced = view is not None  # the warm-up steps read the local delta
+                if synced:
+                    self._set_state(view)
+                    self._guard_state_integrity("sync", cache)
+            elif synced:
+                # entry order: a synchronous sync never overtakes in-flight deferred ones
+                self._drain_handle_ring()
+                auto = self._lag_controller is not None and self.sync_lag == "auto" and self._in_forward
+                self._sync_dist(self.dist_sync_fn, timer=self._lag_controller.observe if auto else None)
             try:
                 self._computed = compute(*args, **kwargs)
             finally:
@@ -570,21 +849,55 @@ class Metric(nn.Module, ABC):
 
     # ------------------------------------------------------------- lifecycle
     def reset(self) -> None:
-        """Reset all states to their defaults."""
+        """Reset all states to their defaults (in the ``astype`` dtype, if one
+        was set). In-flight deferred syncs still complete, but a reset metric
+        never reads their views."""
         self._computed = None
         self._count_bound = 0
         self._epoch_watermark = 0
+        self._handle_ring = deque()
         self._set_state(self.init_state())
+        if self._state_dtype is not None:
+            self.astype(self._state_dtype)
 
     def clone(self) -> "Metric":
         return deepcopy(self)
 
     def __getstate__(self) -> dict:
-        return {k: v for k, v in self.__dict__.items() if k not in _WRAPPER_ATTRS}
+        return {k: v for k, v in self.__dict__.items() if k not in _WRAPPER_ATTRS and k not in _LIVE_ATTRS}
 
     def __setstate__(self, state: dict) -> None:
         super().__setstate__(state)
+        for name, default in (("check_finite", None), ("sync_lag", 0), ("_state_dtype", None)):
+            self.__dict__.setdefault(name, default)
+        # handles never travel: drop any ring a foreign __dict__ carried in
+        self.__dict__["_handle_ring"] = deque()
+        self.__dict__["_lag_controller"] = None
         self._wrap_methods()
+
+    def astype(self, dtype: torch.dtype) -> "Metric":
+        """Cast the floating-point states to ``dtype`` (integer states and
+        sketch counts stay); later resets keep the cast."""
+        self._state_dtype = dtype
+
+        def cast(v: Tensor) -> Tensor:
+            return v.to(dtype) if v.is_floating_point() else v
+
+        for name in self._defaults:
+            value = getattr(self, name)
+            if isinstance(value, list):
+                setattr(self, name, [cast(v) for v in value])
+            elif isinstance(value, PaddedBuffer):
+                setattr(self, name, PaddedBuffer(cast(value.data), value.count))
+            elif is_sketch(value):
+                setattr(self, name, type(value)(cast(value.counts)))
+            else:
+                setattr(self, name, cast(value))
+        return self
+
+    def state_pytree(self) -> State:
+        """Every current state, as a dict."""
+        return self._current_state()
 
     def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "Metric":
         # ``.to()`` / ``.cuda()`` move the registered states; the templates
@@ -837,7 +1150,8 @@ class CompositionalMetric(Metric):
             return value
         return torch.as_tensor(value, device=self.device)
 
-    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None) -> None:
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None,
+                   timer: Optional[Callable[[float], None]] = None) -> None:
         # the child metrics sync themselves
         pass
 

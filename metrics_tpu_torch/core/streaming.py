@@ -41,7 +41,6 @@ import itertools
 import math
 import threading
 import time
-from concurrent.futures import Future
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -388,11 +387,17 @@ class WatermarkAgreement:
     **Transport.** Within one process the registry IS the agreement — every
     ``report`` is a dict store, and ``agreed()`` is a min over the registry
     (deterministic, lock-cheap). :meth:`exchange` is the cross-process round;
-    in one process it is the identity (counted, already resolved), and across
-    processes it is not ported yet and raises (see :meth:`exchange`). It makes
-    no collective call on the card. Cadence: every ``exchange_every_s``
-    seconds of wall clock (0 = every report), with at most one exchange in
-    flight.
+    in one process it is the identity (counted, already resolved). Across
+    processes it is one ``all_reduce`` (min) of this process's contribution,
+    entered on the caller's thread and folded into the registry by the host
+    plane's worker (``parallel/deferred.deferred_host_gather``) under
+    ``guard``; a degraded round keeps the local view. In one process the
+    cadence is every ``exchange_every_s`` seconds of wall clock (0 = every
+    report), with at most one exchange in flight. Across processes a round is
+    a collective that every process must enter equally often, so rounds are
+    dispatched only by explicit :meth:`exchange` calls, made at the same
+    points of every process's program, and never skipped; ``report`` only
+    records.
 
     **Stragglers.** Agreement must never deadlock the fleet: a rank whose
     watermark stops advancing for ``deadline_s`` wall-clock seconds is
@@ -415,9 +420,11 @@ class WatermarkAgreement:
             (``None`` disables exclusion — a stalled rank then holds the
             agreed clock forever; only safe when something else bounds it).
         policy: ``"degrade"`` (exclude + count + latch) or ``"raise"``.
-        exchange_every_s: minimum wall-clock spacing between cross-process
-            exchange rounds (0 dispatches one per report, subject to the
-            single-in-flight guard).
+        exchange_every_s: minimum wall-clock spacing between exchange rounds
+            dispatched by ``report`` in one process (0 dispatches one per
+            report, subject to the single-in-flight guard).
+        guard: the :class:`~metrics_tpu_torch.parallel.sync.SyncGuard` of the
+            cross-process rounds (default: the process-wide guard at dispatch).
         label: gauge label (``watermark_agreement`` in counters snapshots);
             auto-indexed when omitted.
     """
@@ -429,6 +436,7 @@ class WatermarkAgreement:
         deadline_s: Optional[float] = 30.0,
         policy: str = "degrade",
         exchange_every_s: float = 0.0,
+        guard: Optional[Any] = None,
         label: Optional[str] = None,
     ) -> None:
         if deadline_s is not None and not (
@@ -442,6 +450,7 @@ class WatermarkAgreement:
         self.deadline_s = None if deadline_s is None else float(deadline_s)
         self.policy = policy
         self.exchange_every_s = float(exchange_every_s)
+        self.guard = guard
         self.label = label or f"WatermarkAgreement#{next(WatermarkAgreement._ids)}"
         self._lock = threading.RLock()
         # rank -> {"wm": float|None, "stamp": monotonic seconds of last ADVANCE}
@@ -449,7 +458,9 @@ class WatermarkAgreement:
         self._excluded: set = set()
         self._agreed: Optional[float] = None  # monotone high-water of the min
         self._remote: Optional[float] = None  # last exchanged cross-process min
-        self._inflight: Optional[Future] = None  # at most one exchange in flight
+        self._remote_hold = False  # a peer process holds the agreement open (a rank yet to report)
+        self._folded = False  # a cross-process round has been folded in
+        self._inflight: Optional[Any] = None  # the last exchange round's SyncHandle
         self._last_exchange = time.monotonic()  # cadence counts from construction
         self.stragglers = 0  # lifetime exclusion episodes
         self.exchanges = 0  # lifetime exchange rounds dispatched
@@ -509,7 +520,8 @@ class WatermarkAgreement:
         deadline)."""
         with self._lock:
             candidate = self._included_min_locked()
-            if candidate is not None:
+            # across processes the other processes' clocks hold the agreement open until a first round lands
+            if candidate is not None and not self._remote_hold and (self._folded or _world_size() == 1):
                 if self._remote is not None:
                     candidate = min(candidate, self._remote)
                 if self._agreed is None or candidate > self._agreed:
@@ -565,43 +577,70 @@ class WatermarkAgreement:
             return tuple(sorted(self._excluded, key=repr))
 
     # -------------------------------------------------------------- exchange
-    def exchange(self) -> Optional[Future]:
-        """Run one cross-process min-exchange round; returns its future (or
-        ``None`` when a round is still in flight or no local min exists yet).
+    def exchange(self) -> Optional[Any]:
+        """Run one cross-process min-exchange round; returns its
+        :class:`~metrics_tpu_torch.parallel.deferred.SyncHandle`.
 
         In one process (no ``torch.distributed`` group, or a world of 1) the
         registry already is the world: the round is counted and recorded
-        (``wm_exchange_calls``) and the returned future is already resolved to
-        ``{"wm": local_min}``, the JAX package's single-process fold, which
-        changes nothing. Across processes the JAX package rides its deferred
-        host plane (``deferred_host_gather``), which this package does not
-        have yet (ROADMAP section 1, item 3): a world larger than 1 raises
-        ``NotImplementedError`` rather than agree on this process's ranks
-        alone."""
-        if _world_size() > 1:
-            raise NotImplementedError(
-                f"watermark agreement {self.label!r}: the cross-process exchange needs the deferred host"
-                " plane (deferred_host_gather), which metrics_tpu_torch does not have yet (ROADMAP section 1,"
-                " item 3); refusing to agree on this process's registry alone in a world of"
-                f" {_world_size()}"
-            )
+        (``wm_exchange_calls``), and the handle is already resolved to
+        ``{"wm": local_min}`` (``None`` instead when a round is in flight or
+        no local min exists yet), the JAX package's single-process fold,
+        which changes nothing.
+
+        Across processes every call enters one round: an ``all_reduce``
+        (min, float64) of ``[local min or +inf, -1 if a registered rank of
+        this process is still silent within its deadline else 0]``, entered
+        here on the caller's thread, so every process must call ``exchange``
+        at the same points of its program. The host plane's worker waits on
+        it under ``guard`` and folds it: a silent rank anywhere holds the
+        agreement open, else the exchanged min joins ``agreed()``; until a
+        first round has been folded in, the agreement stays open. A process
+        whose ranks are all excluded contributes ``+inf``, so a straggler
+        excluded on its own process no longer holds the others back. A round
+        that degrades folds this process's own contribution (the local
+        view); one that raises is dropped by :meth:`drain`."""
+        world = _world_size()
         with self._lock:
-            if self._inflight is not None and not self._inflight.done():
+            if world == 1 and self._inflight is not None and not self._inflight.done():
                 return None
             local_min = self._included_min_locked()
-            if local_min is None:
+            pending = any(entry["wm"] is None for rank, entry in self._ranks.items() if rank not in self._excluded)
+            if world == 1 and local_min is None:
                 return None
             self.exchanges += 1
             self._last_exchange = time.monotonic()
             self._note_gauge_locked()
         record_wm_exchange()
-        handle: Future = Future()
-        handle.set_result({"wm": np.asarray(local_min, dtype=np.float64)})
+        from metrics_tpu_torch.parallel.deferred import SyncHandle, deferred_host_gather
+
+        if world == 1:
+            handle = SyncHandle("ready", {"wm": np.asarray(local_min, dtype=np.float64)}, label="wm_exchange")
+        else:
+            contribution = [math.inf if local_min is None else local_min, -1.0 if pending else 0.0]
+            backend = dist.get_backend()
+            device = torch.device("cuda", torch.cuda.current_device()) if backend == "nccl" else torch.device("cpu")
+            handle = deferred_host_gather({"wm": torch.tensor(contribution, dtype=torch.float64, device=device)},
+                                          {"wm": "min"}, guard=self.guard, label="wm_exchange",
+                                          finish=self._fold_exchange)
         with self._lock:
             self._inflight = handle
         return handle
 
+    def _fold_exchange(self, result: Dict[str, Any]) -> Dict[str, Any]:
+        """The exchange's ``finish`` (runs on the host plane's worker): fold
+        the exchanged ``[min, hold]`` into the registry."""
+        wm, hold = (float(v) for v in result["wm"].cpu())
+        with self._lock:
+            self._folded = True
+            self._remote_hold = hold < 0
+            if not self._remote_hold:
+                self._remote = None if math.isinf(wm) else wm
+        return result
+
     def _maybe_exchange(self) -> None:
+        if _world_size() > 1:
+            return  # across processes rounds are explicit exchange() calls (see exchange)
         if self.exchange_every_s > 0:
             with self._lock:
                 if time.monotonic() - self._last_exchange < self.exchange_every_s:

@@ -1,10 +1,12 @@
-"""Counters of the keyed wrappers and the watermark agreement.
+"""Counters of the keyed wrappers, the watermark agreement and the guarded and
+deferred sync planes.
 
-Counterpart of the slab and watermark parts of
+Counterpart of the slab, watermark, fault and deferred parts of
 ``metrics_tpu/observability/counters.py``: the :class:`CollectiveCounters`
 registry, ``enable`` / ``disable`` / ``is_enabled`` / ``reset`` /
-``snapshot``, and the record functions the wrappers and
-``core/streaming.WatermarkAgreement`` call. What is counted:
+``snapshot``, and the record functions the wrappers,
+``core/streaming.WatermarkAgreement``, the guard plane of ``parallel/sync.py``
+and ``parallel/deferred.py`` call. What is counted:
 
 - **slab_dropped_samples**: samples whose slot id fell outside a slab's
   ``[0, K)`` range and were dropped by the scatter (``parallel/slab.py``).
@@ -32,10 +34,21 @@ registry, ``enable`` / ``disable`` / ``is_enabled`` / ``reset`` /
   "ranks", "excluded", "exchanges"}}``, refreshed on every exchange and every
   exclusion or rejoin while counting is enabled.
 
-The collective, cache, fault and serving counters of the JAX package's
-registry are not ported yet; ``snapshot()`` carries the seven keys above, with
-the JAX package's names and layouts. Counting is off by default; all mutation
-happens under one lock.
+- **faults**: ``{kind: n}`` over :data:`FAULT_KINDS` (guarded collective
+  retries, exhausted retry budgets, degraded syncs, quarantined updates).
+  Recorded even while counting is disabled: fault evidence must survive.
+- **gather_skips**: host-plane syncs of an empty (or all-``None``) state that
+  entered no collective. Recorded even while counting is disabled.
+- **deferred**: ``{kind: n}`` over :data:`DEFERRED_KINDS` (handles
+  dispatched, fenced by ``result()``, completed), while counting is enabled.
+- **deferred_depth**: per-label gauges ``{label: {"current", "max"}}`` of a
+  metric's lag-k handle ring, refreshed by every deferring forward while
+  counting is enabled.
+
+The collective, cache, sparse and serving counters of the JAX package's
+registry are not ported yet; ``snapshot()`` carries the eleven keys above,
+with the JAX package's names and layouts. Counting is off by default; all
+mutation happens under one lock.
 """
 import threading
 from typing import Any, Dict
@@ -43,10 +56,16 @@ from typing import Any, Dict
 __all__ = [
     "COUNTERS",
     "CollectiveCounters",
+    "DEFERRED_KINDS",
+    "FAULT_KINDS",
     "disable",
     "enable",
     "is_enabled",
+    "record_deferred",
+    "record_deferred_depth",
     "record_evicted_mass",
+    "record_fault",
+    "record_gather_skip",
     "record_heavy_hitters",
     "record_slab_dropped",
     "record_slab_slots",
@@ -57,12 +76,28 @@ __all__ = [
     "snapshot",
 ]
 
+# fault-counter kinds with a stable place in every snapshot (zeros included)
+FAULT_KINDS = (
+    "sync_retries",  # guarded collective attempts made again after a transient failure
+    "sync_deadline_exceeded",  # retry budgets exhausted (either policy)
+    "degraded_computes",  # syncs that fell back to the local state
+    "quarantined_updates",  # batch deltas discarded by check_finite="quarantine"
+)
+
+# deferred-plane lifecycle counters (parallel/deferred.py), all three in every snapshot
+DEFERRED_KINDS = (
+    "dispatched",  # SyncHandles issued (collectives entered unfenced / host gathers queued)
+    "fenced",  # handles resolved by result()
+    "completed",  # syncs whose work finished
+)
+
 
 class CollectiveCounters:
     """Process-wide counters; ``enabled`` is the gate of the gauges."""
 
     __slots__ = ("enabled", "slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters",
-                 "wm_stragglers", "wm_exchange_calls", "watermark_agreement", "_lock")
+                 "wm_stragglers", "wm_exchange_calls", "watermark_agreement", "faults", "gather_skips",
+                 "deferred", "deferred_depth", "_lock")
 
     def __init__(self) -> None:
         self.enabled = False
@@ -77,6 +112,38 @@ class CollectiveCounters:
         self.wm_stragglers = 0
         self.wm_exchange_calls = 0
         self.watermark_agreement: Dict[str, Dict[str, Any]] = {}
+        self.faults: Dict[str, int] = {k: 0 for k in FAULT_KINDS}
+        self.gather_skips = 0
+        self.deferred: Dict[str, int] = {k: 0 for k in DEFERRED_KINDS}
+        self.deferred_depth: Dict[str, Dict[str, int]] = {}
+
+    def record_fault(self, kind: str, n: int = 1) -> None:
+        """``kind`` must be in :data:`FAULT_KINDS` (a typo'd fault kind fails loudly)."""
+        if kind not in self.faults:
+            raise ValueError(f"unknown fault kind {kind!r}; expected one of {FAULT_KINDS}")
+        with self._lock:
+            self.faults[kind] += int(n)
+
+    def record_deferred(self, kind: str, n: int = 1) -> None:
+        """``kind`` must be in :data:`DEFERRED_KINDS` (fails loudly on a typo)."""
+        if kind not in self.deferred:
+            raise ValueError(f"unknown deferred kind {kind!r}; expected one of {DEFERRED_KINDS}")
+        with self._lock:
+            self.deferred[kind] += int(n)
+
+    def record_deferred_depth(self, label: str, current: int) -> None:
+        """Refresh one handle ring's depth gauge (latest ``current`` wins;
+        ``max`` is the high-water mark since the last reset)."""
+        if current < 0:
+            raise ValueError(f"deferred depth must be >= 0, got {current}")
+        with self._lock:
+            prev = self.deferred_depth.get(label)
+            peak = max(int(current), prev["max"]) if prev else int(current)
+            self.deferred_depth[label] = {"current": int(current), "max": peak}
+
+    def record_gather_skip(self) -> None:
+        with self._lock:
+            self.gather_skips += 1
 
     def record_slab_dropped(self, n: int = 1) -> None:
         """Count samples dropped by a slab scatter's out-of-range slot ids."""
@@ -143,6 +210,10 @@ class CollectiveCounters:
                 "watermark_agreement": {k: dict(v) for k, v in sorted(self.watermark_agreement.items())},
                 "slab_slots": {k: dict(v) for k, v in sorted(self.slab_slots.items())},
                 "heavy_hitters": {k: dict(v) for k, v in sorted(self.heavy_hitters.items())},
+                "faults": dict(self.faults),
+                "gather_skips": self.gather_skips,
+                "deferred": dict(self.deferred),
+                "deferred_depth": {k: dict(v) for k, v in sorted(self.deferred_depth.items())},
             }
 
     def reset(self) -> None:
@@ -168,6 +239,16 @@ def record_wm_straggler(n: int = 1) -> None:
     COUNTERS.record_wm_straggler(n)
 
 
+# fault evidence records unconditionally too: faults are rare, never the hot
+# path, and losing the trail because counting was off would defeat it
+def record_fault(kind: str, n: int = 1) -> None:
+    COUNTERS.record_fault(kind, n)
+
+
+def record_gather_skip() -> None:
+    COUNTERS.record_gather_skip()
+
+
 # the gauges are telemetry and share the enabled gate
 def record_slab_slots(label: str, slots: int, occupied: int, evictions: int) -> None:
     if COUNTERS.enabled:
@@ -188,6 +269,18 @@ def record_wm_exchange(n: int = 1) -> None:
 def record_watermark_agreement(label: str, agreed: Any, ranks: int, excluded: Any, exchanges: int) -> None:
     if COUNTERS.enabled:
         COUNTERS.record_watermark_agreement(label, agreed, ranks, excluded, exchanges)
+
+
+# the deferred lifecycle is high-volume on a deferring loop (a dispatch and a
+# fence a step): telemetry, gated like the gauges
+def record_deferred(kind: str, n: int = 1) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_deferred(kind, n)
+
+
+def record_deferred_depth(label: str, current: int) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_deferred_depth(label, current)
 
 
 def enable() -> None:

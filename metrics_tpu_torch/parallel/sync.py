@@ -28,16 +28,29 @@ state still enters both collectives: it takes the state's dtype and item
 shape from the table. Lists come out in rank-major order; buffers come out
 compacted, every rank's valid rows at the front in rank order (the
 ``buffer_all_gather`` layout of the JAX package).
+
+The guard plane (:class:`SyncGuard`, :func:`set_sync_guard`, the fault hook
+that ``parallel/faults.py`` installs) wraps every collective call of both
+forms: deadlines, retries with backoff, and a raise or degrade policy on
+exhaustion. Every collective of a process is entered on the caller's thread,
+in program order: a torch process group does not order collectives that two
+threads issue, so the guard waits on ``async_op=True`` works with its
+deadline instead of running attempts on threads, and the deferred plane
+(``parallel/deferred.py``) enters its collectives at dispatch the same way.
 """
+import functools
+import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 from torch import Tensor
 
+from metrics_tpu_torch.observability.counters import record_fault, record_gather_skip
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_compact_gathered, buffer_merge, handle_overflow
 from metrics_tpu_torch.parallel.sketch import is_sketch, sketch_merge
 from metrics_tpu_torch.utils.data import dim_zero_cat, dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum
+from metrics_tpu_torch.utils.exceptions import InjectedFaultError, StateCorruptionError, SyncTimeoutError
 
 # A reduction spec as accepted by ``Metric.add_state``.
 ReduceFx = Union[str, Callable, None]
@@ -174,10 +187,321 @@ def _local_unit(value: Any, layout: Optional[tuple]) -> Tuple[Optional[Tensor], 
     return data, row + list(item) + [0] * (_MAX_ITEM_DIMS - len(item))
 
 
+def _tensor_of(value: Any) -> Tensor:
+    """The tensor a reduce state syncs: a sketch's counts, or the state itself."""
+    return value.counts if is_sketch(value) else value
+
+
+
+
+def snapshot_state(state: Dict[Any, Any]) -> Dict[Any, Any]:
+    """A copy of a state dict whose tensors share nothing with the live
+    state: the double buffer of a sync that runs while the metric keeps
+    updating in place."""
+
+    def copy(value: Any) -> Any:
+        if isinstance(value, Tensor):
+            return value.clone()
+        if isinstance(value, PaddedBuffer):
+            return PaddedBuffer(value.data.clone(), value.count.clone())
+        if is_sketch(value):
+            return type(value)(value.counts.clone())
+        if isinstance(value, list):
+            return [copy(v) for v in value]
+        return value
+
+    return {k: copy(v) for k, v in state.items()}
+
+
+# ------------------------------------------------------------- the guard plane
+class SyncGuard(NamedTuple):
+    """Deadline / retry / degrade policy for the port's sync collectives.
+
+    Applied per collective call by every sync of the port: the ``all_reduce``
+    buckets and the gather plane of :func:`all_reduce_state`, and the
+    ``gather_fn`` calls of :func:`host_gather`. The default guard (no
+    deadline, no finite check, no fault hook installed) keeps the unwrapped
+    fast path: no copy, no thread, no ``Work`` handle.
+
+    - ``deadline_s``: bound on how long one attempt may be waited on. The
+      collective is entered as an ``async_op=True`` work on the caller's thread
+      and polled; on expiry the wait is abandoned, not the work (a collective
+      cannot be cancelled once entered), and the next attempt waits on the
+      same work again instead of entering a second one, so every rank enters
+      each collective exactly once. An injected stall burns the deadline
+      before the collective is entered; its retry enters it.
+    - ``max_retries`` / ``backoff_s``: transient failures (injected drops,
+      deadline expiries, a corrupted payload) are retried up to
+      ``max_retries`` times, sleeping ``backoff_s * 2**attempt`` between.
+    - ``policy``: on exhaustion ``"raise"`` throws
+      :class:`~metrics_tpu_torch.utils.exceptions.SyncTimeoutError` (or the
+      ``StateCorruptionError`` that exhausted it); ``"degrade"`` returns the
+      local state for the whole sync and counts ``degraded_computes``. A
+      degraded sync still enters every remaining collective its peers enter,
+      with the shapes they use, and waits on none of them but the gather
+      plane's layout table, whose rows size the padded gathers.
+    - ``check_finite``: scan each result for non-finite floats and
+      near-saturated integers that the local payload did not carry, and
+      retry on them (a fresh copy of the local payload is reduced again).
+    """
+
+    deadline_s: Optional[float] = None
+    max_retries: int = 2
+    backoff_s: float = 0.05
+    policy: str = "raise"  # 'raise' | 'degrade'
+    check_finite: bool = False
+
+
+_SYNC_GUARD = SyncGuard()
+
+# the fault hook (a parallel.faults.ChaosInjector when installed); consulted
+# only on the guarded path
+_FAULT_HOOK: Optional[Any] = None
+
+# how often a deadline-bounded wait polls its work's completion
+_POLL_S = 2e-4
+
+
+def set_sync_guard(guard: Optional[SyncGuard]) -> SyncGuard:
+    """Set the process-wide default :class:`SyncGuard`; returns the old one
+    (``None`` restores the trivial default)."""
+    global _SYNC_GUARD
+    old = _SYNC_GUARD
+    guard = guard if guard is not None else SyncGuard()
+    if guard.policy not in ("raise", "degrade"):
+        raise ValueError(f"SyncGuard.policy must be 'raise' or 'degrade', got {guard.policy!r}")
+    _SYNC_GUARD = guard
+    return old
+
+
+def current_sync_guard() -> SyncGuard:
+    return _SYNC_GUARD
+
+
+class _DeadlineExceeded(Exception):
+    """Internal: one attempt exceeded ``deadline_s`` (retryable)."""
+
+
+def _payload_suspect(value: Tensor) -> bool:
+    """The corruption signature of one payload: non-finite floats, or integers
+    within ``max(iinfo.max // 2048, 1)`` of their dtype's range."""
+    if value.is_floating_point() or value.is_complex():
+        return not bool(torch.isfinite(value).all())
+    if value.dtype == torch.bool:
+        return False
+    info = torch.iinfo(value.dtype)
+    margin = max(info.max // 2048, 1)
+    return bool(((value >= info.max - margin) | (value <= info.min + margin)).any())
+
+
+def _payload_corrupted(local: Tensor, result: List[Tensor]) -> bool:
+    """Corruption signatures in a result that the local payload did not carry
+    (a genuinely poisoned local state must not retry forever)."""
+    if _payload_suspect(local):
+        return False
+    return any(_payload_suspect(part) for part in result)
+
+
+class _Ready:
+    """A collective call that has already returned its result."""
+
+    __slots__ = ("result",)
+
+    def __init__(self, result: List[Tensor]):
+        self.result = result
+
+    def done(self) -> bool:
+        return True
+
+    def wait(self, deadline_s: Optional[float]) -> List[Tensor]:
+        return self.result
+
+
+class _Issued:
+    """A collective entered with ``async_op=True``: its work, and the function
+    that reads the result once the work is done."""
+
+    __slots__ = ("work", "read")
+
+    def __init__(self, work: Any, read: Callable[[], List[Tensor]]):
+        self.work, self.read = work, read
+
+    def done(self) -> bool:
+        return self.work.is_completed()
+
+    def wait(self, deadline_s: Optional[float]) -> List[Tensor]:
+        if deadline_s is not None and not self.work.is_completed():
+            end = time.monotonic() + deadline_s
+            while not self.work.is_completed():
+                if time.monotonic() >= end:
+                    raise _DeadlineExceeded(f"collective not complete within its {deadline_s}s deadline")
+                time.sleep(_POLL_S)
+        self.work.wait()  # NCCL: the current stream waits on the collective
+        return self.read()
+
+
+class _Call:
+    """One logical collective call of a guarded sync."""
+
+    __slots__ = ("idx", "value", "issue", "pending", "attempt", "result")
+
+    def __init__(self, idx: int, value: Tensor, issue: Callable[[bool], Any]):
+        self.idx, self.value, self.issue = idx, value, issue
+        self.pending: Any = None
+        self.attempt = 0
+        self.result: Optional[List[Tensor]] = None
+
+
+def _run_hook(hook: Any, site: str, idx: int, attempt: int, deadline_s: Optional[float]) -> None:
+    """The fault hook before an attempt enters its collective, on this thread:
+    a drop or a preemption raises; a stall sleeps, at most ``deadline_s``, and
+    one that outlasts the deadline raises ``_DeadlineExceeded`` (the attempt is
+    burnt before any collective was entered)."""
+    seconds = hook.stall_for(site, idx, attempt)
+    if deadline_s is not None and seconds > deadline_s:
+        hook.stall(deadline_s)
+        raise _DeadlineExceeded(f"attempt {attempt} of call {idx} stalled past its {deadline_s}s deadline")
+    hook.stall(seconds)
+
+
+class _GuardPlane:
+    """The guard state of one sync: the site's call numbering, the degraded
+    latch and the fault hook, captured when the sync starts.
+
+    Call indexing: a sync numbers its collective calls at site
+    ``"host_gather"`` in the order it enters them. :func:`all_reduce_state`
+    enters one ``all_reduce`` per (dtype, op) bucket, in the order the
+    buckets' first states appear in the state dict, then (when it holds
+    gather states) the layout table's ``all_gather`` and one padded
+    ``all_gather`` per dtype, in dtype-code order. :func:`host_gather` makes
+    one ``gather_fn`` call per dtype for a packable gather
+    (:func:`packable_gather`), else one per tensor. The JAX package makes one
+    packed gather per dtype, so a ``FaultSpec(call=i)`` hits the same call in
+    both only where the state is one bucket in both (an int64 sum such as
+    ``Accuracy``'s, int32 in the JAX package).
+
+    ``reissue=False`` is the form whose results are read on the host plane's
+    worker: a corrupted result cannot enter its collective again there (a
+    collective entered from another thread would lose its place in the
+    program order), so it goes straight to the policy.
+    """
+
+    __slots__ = ("guard", "hook", "site", "calls", "degraded", "reissue")
+
+    def __init__(self, guard: Optional[SyncGuard] = None, site: str = "host_gather", reissue: bool = True):
+        self.guard = guard if guard is not None else _SYNC_GUARD
+        self.hook = _FAULT_HOOK
+        self.site, self.calls, self.degraded, self.reissue = site, 0, False, reissue
+
+    @property
+    def active(self) -> bool:
+        return self.hook is not None or self.guard.deadline_s is not None or self.guard.check_finite
+
+    def call(self, value: Tensor, issue: Callable[[bool], Any], resolve: bool = True) -> _Call:
+        """Enter one collective: ``issue(async_op)`` enters it on this thread
+        and returns a ``_Ready`` or ``_Issued``. With ``resolve`` the call is
+        waited on (``call.result``); without, only entered, and
+        :meth:`resolve` waits on it later."""
+        hook = self.hook
+        idx = hook.note_call(self.site) if hook is not None else self.calls
+        self.calls += 1
+        call = _Call(idx, value, issue)
+        if self.degraded:
+            # entry order: the degraded sync still enters what its peers enter,
+            # and does not wait on it (the gather plane's table aside, see
+            # ``_gather_states``)
+            call.pending = issue(True)
+            call.result = [value]
+            return call
+        if not self.active:
+            call.pending = issue(not resolve)
+            if resolve:
+                call.result = call.pending.wait(None)
+            return call
+        self._run(call, stop_after_issue=not resolve)
+        return call
+
+    def resolve(self, call: _Call) -> List[Tensor]:
+        if call.result is None:
+            if self.degraded:
+                call.result = [call.value]  # entered already; a degraded sync does not wait on it
+            elif not self.active:
+                call.result = call.pending.wait(None)
+            else:
+                self._run(call, stop_after_issue=False)
+        return call.result
+
+    def _run(self, call: _Call, stop_after_issue: bool) -> None:
+        guard, hook, site = self.guard, self.hook, self.site
+        while True:
+            try:
+                if call.pending is None:
+                    if hook is not None:
+                        _run_hook(hook, site, call.idx, call.attempt, guard.deadline_s)
+                    call.pending = call.issue(stop_after_issue or guard.deadline_s is not None)
+                    if stop_after_issue:
+                        return
+                result = call.pending.wait(guard.deadline_s)  # an expiry keeps the work: the retry re-waits it
+                if hook is not None:
+                    result = hook.after_call(site, call.idx, call.attempt, result)
+                if guard.check_finite and _payload_corrupted(call.value, result):
+                    call.pending = None
+                    raise StateCorruptionError(f"non-finite or saturated values appeared in sync payload"
+                                               f" (call {call.idx})")
+                call.result = result
+                return
+            except (InjectedFaultError, _DeadlineExceeded, StateCorruptionError) as err:
+                call.attempt += 1
+                record_fault("sync_retries")
+                can_retry = self.reissue or not isinstance(err, StateCorruptionError)
+                if can_retry and call.attempt <= guard.max_retries:
+                    time.sleep(guard.backoff_s * (2 ** (call.attempt - 1)))
+                    continue
+                record_fault("sync_deadline_exceeded")
+                if guard.policy == "degrade":
+                    self.degraded = True
+                    call.result = [call.value]
+                    return
+                if isinstance(err, StateCorruptionError):
+                    raise
+                raise SyncTimeoutError(
+                    f"sync call {call.idx} failed after {guard.max_retries} retries"
+                    f" (deadline {guard.deadline_s}s, policy 'raise'): {err}"
+                ) from err
+
+
+def _issue_all_reduce(flat: Tensor, op: Any, group: Optional[Any], copy: bool) -> Callable[[bool], Any]:
+    def issue(async_op: bool) -> Any:
+        buf = flat.clone() if copy else flat  # a retry reduces the local payload again
+        work = dist.all_reduce(buf, op=op, group=group, async_op=async_op)
+        return _Issued(work, lambda: [buf]) if async_op else _Ready([buf])
+
+    return issue
+
+
+def _issue_all_gather(value: Tensor, world: int, group: Optional[Any]) -> Callable[[bool], Any]:
+    def issue(async_op: bool) -> Any:
+        outs = [torch.empty_like(value) for _ in range(world)]
+        work = dist.all_gather(outs, value, group=group, async_op=async_op)
+        return _Issued(work, lambda: outs) if async_op else _Ready(outs)
+
+    return issue
+
+
+# ------------------------------------------------------------ the gather plane
 def _gather_states(
-    state: Dict[str, Any], names: List[str], layouts: Dict[str, tuple], device: torch.device, group: Optional[Any]
+    state: Dict[str, Any], names: List[str], layouts: Dict[str, tuple], device: torch.device, group: Optional[Any],
+    plane: _GuardPlane,
 ) -> Dict[str, Any]:
-    """Gather the named states across ranks: one layout all_gather, then one padded all_gather per dtype."""
+    """Gather the named states across ranks: one layout all_gather, then one
+    padded all_gather per dtype, sized by every rank's table row.
+
+    A degraded plane still enters the padded gathers with the shapes its peers
+    use, so it waits, without a deadline, on the table it entered: the one
+    wait a degraded sync makes. A table that was never entered (every attempt
+    dropped by a fault schedule that every rank shares) enters no padded
+    gather either. A degraded plane's result is not assembled: the caller
+    takes the local view."""
     world = dist.get_world_size(group)
     units, rows = [], []
     for name in names:
@@ -188,8 +512,13 @@ def _gather_states(
     for u, name in enumerate(names):
         if isinstance(state[name], PaddedBuffer):  # the count stays on the device: no host read
             table[u, 3] = state[name].count
-    gathered_tables = [torch.empty_like(table) for _ in range(world)]
-    dist.all_gather(gathered_tables, table, group=group)
+    call = plane.call(table, _issue_all_gather(table, world, group))
+    if not plane.degraded:
+        gathered_tables = call.result
+    elif call.pending is not None:
+        gathered_tables = call.pending.wait(None)
+    else:
+        return {}
     per_rank = torch.stack(gathered_tables).tolist()  # (world, units, width): ONE host read
 
     # agree on each state's layout: the first rank that knows it
@@ -227,8 +556,9 @@ def _gather_states(
                 data = torch.cat([data, data.new_zeros((lay.pad_rows - data.shape[0], *lay.item))])
             pieces.append(data.reshape(-1))
         flat = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
-        gathered = [torch.empty_like(flat) for _ in range(world)]
-        dist.all_gather(gathered, flat, group=group)
+        gathered = plane.call(flat, _issue_all_gather(flat, world, group)).result
+        if plane.degraded:
+            continue  # the caller takes the local view
         offset = 0
         for u in members:
             lay = agreed[u]
@@ -243,9 +573,127 @@ def _gather_states(
     return out
 
 
-def _tensor_of(value: Any) -> Tensor:
-    """The tensor a reduce state syncs: a sketch's counts, or the state itself."""
-    return value.counts if is_sketch(value) else value
+_DIST_OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
+
+
+class StateSync:
+    """One state sync of the bucketed plane, entered on the caller's thread.
+
+    Built by :func:`dispatch_state_sync`: the reduce buckets' ``all_reduce``
+    calls are entered (unfenced with ``deferred=True``) and the gather plane
+    has run, since its padded gathers are sized by a host read of the layout
+    table. :meth:`finish` waits on the buckets (under the guard) and
+    assembles the synced state dict; :meth:`done` says whether it would wait.
+    """
+
+    def __init__(self, state: Dict[str, Any], reductions: Dict[str, ReduceFx], group: Optional[Any],
+                 layouts: Dict[str, tuple], device: Optional[torch.device], plane: _GuardPlane, deferred: bool):
+        self.state, self.reductions, self.group, self.layouts, self.plane = state, reductions, group, layouts, plane
+        buckets: Dict[tuple, List[str]] = {}
+        self.gather_names: List[str] = []
+        for name, value in state.items():
+            fx = reductions[name]
+            if _is_gather_state(value, fx):
+                self.gather_names.append(name)
+            else:
+                buckets.setdefault((_tensor_of(value).dtype, _REDUCE_OPS[fx]), []).append(name)
+        if device is None:
+            device = next((v.device for v in state.values() if isinstance(v, Tensor)), torch.device("cpu"))
+        self.device = device
+        # a bucket reduces a copy of its states (torch.cat copies), so the live
+        # tensors are never written; under a guard each attempt reduces a fresh
+        # copy of that, since a retry needs the local payload again
+        self.calls = []
+        for (_dtype, op), names in buckets.items():
+            flat = torch.cat([_tensor_of(state[n]).reshape(-1) for n in names])
+            issue = _issue_all_reduce(flat, getattr(dist.ReduceOp, _DIST_OPS[op]), group, plane.active)
+            self.calls.append((names, plane.call(flat, issue, resolve=not deferred)))
+        # a degraded sync returns the local state as it was at dispatch: the
+        # buckets' payloads are copies already; a deferred sync, which the
+        # caller may update in place before it finishes, copies its gather states
+        self.local = state
+        if deferred and plane.active and self.gather_names:
+            self.local = dict(state, **snapshot_state({n: state[n] for n in self.gather_names}))
+        self.gathered = (_gather_states(state, self.gather_names, layouts, device, group, plane)
+                         if self.gather_names else {})
+        self._out: Optional[Dict[str, Any]] = None
+
+    def done(self) -> bool:
+        return all(call.result is not None or call.pending.done() for _names, call in self.calls)
+
+    def finish(self) -> Dict[str, Any]:
+        if self._out is not None:
+            return self._out
+        results = [(names, self.plane.resolve(call)[0]) for names, call in self.calls]
+        if self.plane.degraded:
+            record_fault("degraded_computes")
+            # the whole sync falls back to the local state, laid out as a world of one
+            self._out = _assemble(self.state, self.reductions, self.gather_names,
+                                  [(names, call.value) for names, call in self.calls],
+                                  _local_gathered(self.local, self.gather_names, self.layouts), world=1)
+        else:
+            world = dist.get_world_size(self.group) if any(self.reductions[n] == "mean" for n in self.state) else 1
+            self._out = _assemble(self.state, self.reductions, self.gather_names, results, self.gathered, world)
+        return self._out
+
+
+def _local_gathered(state: Dict[str, Any], names: List[str], layouts: Dict[str, tuple]) -> Dict[str, Any]:
+    """The gather states as the gather plane lays out a world of one: the
+    local view of a degraded sync."""
+    out: Dict[str, Any] = {}
+    for name in names:
+        value = state[name]
+        if isinstance(value, PaddedBuffer):
+            out[name] = value
+        elif isinstance(value, list):
+            data, _row = _local_unit(value, layouts.get(name))
+            out[name] = [] if data is None else [data]
+        else:
+            out[name] = [value.unsqueeze(0)]
+    return out
+
+
+def _assemble(state: Dict[str, Any], reductions: Dict[str, ReduceFx], gather_names: List[str],
+              reduced: List[tuple], gathered: Dict[str, Any], world: int) -> Dict[str, Any]:
+    """The synced state dict from the reduced buckets and the gathered states."""
+    out = dict(state)
+    for names, flat in reduced:
+        offset = 0
+        for n in names:
+            v = _tensor_of(state[n])
+            piece = flat[offset: offset + v.numel()].view(v.shape)
+            offset += v.numel()
+            if is_sketch(state[n]):
+                out[n] = type(state[n])(piece)
+            else:
+                out[n] = piece / world if reductions[n] == "mean" else piece
+    for name in gather_names:
+        fx, value, parts = reductions[name], state[name], gathered[name]
+        if isinstance(parts, PaddedBuffer) or not parts or isinstance(value, list) and fx is None:
+            out[name] = parts
+        elif isinstance(value, list):
+            out[name] = stacked_reduction(fx)(parts)
+        else:
+            reduction = stacked_reduction(fx)
+            stacked = torch.cat(parts)
+            out[name] = reduction(stacked) if reduction is not None else stacked
+    return out
+
+
+def dispatch_state_sync(
+    state: Dict[str, Any],
+    reductions: Dict[str, ReduceFx],
+    group: Optional[Any] = None,
+    layouts: Optional[Dict[str, tuple]] = None,
+    device: Optional[torch.device] = None,
+    guard: Optional[SyncGuard] = None,
+    deferred: bool = False,
+    reissue: bool = True,
+) -> StateSync:
+    """Enter a state sync's collectives on this thread; see :class:`StateSync`.
+    ``reissue=False`` when :meth:`StateSync.finish` runs on another thread
+    (see ``_GuardPlane``)."""
+    return StateSync(state, reductions, group, layouts or {}, device, _GuardPlane(guard, reissue=reissue), deferred)
 
 
 def all_reduce_state(
@@ -254,6 +702,8 @@ def all_reduce_state(
     group: Optional[Any] = None,
     layouts: Optional[Dict[str, tuple]] = None,
     device: Optional[torch.device] = None,
+    guard: Optional[SyncGuard] = None,
+    timer: Optional[Callable[[float], None]] = None,
 ) -> Dict[str, Any]:
     """Sync a state dict across the ranks of ``group``.
 
@@ -267,83 +717,137 @@ def all_reduce_state(
     holds the ``(dtype, item_shape)`` recorded for list states, ``device``
     where an empty rank builds its part. Returns a new dict; the input
     tensors are not modified.
+
+    Every collective call runs under ``guard`` (default: the process-wide
+    :func:`set_sync_guard` guard; see :class:`SyncGuard`). ``timer`` receives
+    the milliseconds the call held this thread (the adaptive lag
+    controller's lag-0 probe).
     """
-    buckets: Dict[tuple, List[str]] = {}
-    gather_names: List[str] = []
-    for name, value in state.items():
-        fx = reductions[name]
-        if _is_gather_state(value, fx):
-            gather_names.append(name)
-        else:
-            buckets.setdefault((_tensor_of(value).dtype, _REDUCE_OPS[fx]), []).append(name)
-
-    ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
-    out = dict(state)
-    world = None
-    for (_dtype, op), names in buckets.items():
-        flat = torch.cat([_tensor_of(state[n]).reshape(-1) for n in names])
-        dist.all_reduce(flat, op=ops[op], group=group)
-        offset = 0
-        for n in names:
-            v = _tensor_of(state[n])
-            piece = flat[offset: offset + v.numel()].view(v.shape)
-            offset += v.numel()
-            if is_sketch(state[n]):
-                out[n] = type(state[n])(piece)
-                continue
-            if reductions[n] == "mean":
-                if world is None:
-                    world = dist.get_world_size(group)
-                piece = piece / world
-            out[n] = piece
-
-    if gather_names:
-        if device is None:
-            device = next((v.device for v in state.values() if isinstance(v, Tensor)), torch.device("cpu"))
-        gathered = _gather_states(state, gather_names, layouts or {}, device, group)
-        for name in gather_names:
-            fx, value, parts = reductions[name], state[name], gathered[name]
-            if isinstance(parts, PaddedBuffer) or not parts or isinstance(value, list) and fx is None:
-                out[name] = parts
-            elif isinstance(value, list):
-                out[name] = stacked_reduction(fx)(parts)
-            else:
-                reduction = stacked_reduction(fx)
-                stacked = torch.cat(parts)
-                out[name] = reduction(stacked) if reduction is not None else stacked
+    t0 = time.perf_counter() if timer is not None else 0.0
+    out = dispatch_state_sync(state, reductions, group, layouts, device, guard).finish()
+    if timer is not None:
+        timer((time.perf_counter() - t0) * 1e3)
     return out
+
+
+# -------------------------------------------------------------- the host plane
+def packable_gather(fn: Callable) -> Callable:
+    """Mark a ``gather_fn`` as value-based (``fn(x) -> [x of each rank]``), so
+    that :func:`host_gather` packs every same-dtype tensor into one payload and
+    makes one call per dtype. A gather that treats its argument as a
+    reference keeps one call per tensor, so packing is opt-in."""
+    fn._mtpu_packable = True
+    return fn
+
+
+def is_packable_gather(fn: Callable) -> bool:
+    if getattr(fn, "_mtpu_packable", False):
+        return True
+    if isinstance(fn, functools.partial):
+        return is_packable_gather(fn.func)
+    return False
+
+
+def _packed_gather_units(units: List[Tensor], gather: Callable[[Tensor], List[Tensor]]) -> List[List[Tensor]]:
+    """Gather many tensors with one call per dtype: same-dtype units ravel into
+    one payload and are sliced back per rank. A dtype with one unit passes the
+    unit through as it is."""
+    results: List[Optional[List[Tensor]]] = [None] * len(units)
+    buckets: Dict[torch.dtype, List[int]] = {}
+    for i, unit in enumerate(units):
+        buckets.setdefault(unit.dtype, []).append(i)
+    for indices in buckets.values():
+        if len(indices) == 1:
+            results[indices[0]] = gather(units[indices[0]])
+            continue
+        per_rank = gather(torch.cat([units[i].reshape(-1) for i in indices]))
+        offset = 0
+        for i in indices:
+            size = units[i].numel()
+            results[i] = [p[offset: offset + size].view(units[i].shape) for p in per_rank]
+            offset += size
+    return results  # type: ignore[return-value]
 
 
 def host_gather(
     state: Dict[str, Any],
     reductions: Dict[str, ReduceFx],
     gather_fn: Callable[[Tensor], List[Tensor]],
+    guard: Optional[SyncGuard] = None,
+    timer: Optional[Callable[[float], None]] = None,
+    reissue: bool = True,
 ) -> Dict[str, Any]:
     """Gather-then-reduce sync through a caller-supplied ``gather_fn``: every
     tensor is gathered, stacked (list states are flattened element-major) and
     reduced per state, as ``metrics_tpu.parallel.sync.host_gather`` does. A
     PaddedBuffer gathers its data and count and comes back as the dense
     concatenation of every rank's valid rows; each rank's count goes through
-    the overflow policy."""
+    the overflow policy. A :func:`packable_gather` makes one call per dtype.
+
+    ``None`` states pass through; a state with nothing to move enters no
+    gather (``gather_skips``). Every call runs under ``guard`` (see
+    :class:`SyncGuard`; ``gather_fn`` itself runs on this thread, the deadline
+    bounds an injected stall); a degraded sync reduces the local tensors
+    alone. ``timer`` receives the milliseconds the gather calls held this
+    thread; ``reissue=False`` is the host-plane worker's form (see
+    ``_GuardPlane``)."""
+    units: List[Tensor] = []
+    slots: Dict[str, tuple] = {}
+    for name, value in state.items():
+        if value is None:
+            slots[name] = ("none",)
+        elif is_sketch(value):
+            slots[name] = ("sketch", len(units))
+            units.append(value.counts)
+        elif isinstance(value, PaddedBuffer):
+            slots[name] = ("buffer", len(units), len(units) + 1)
+            units.extend([value.data, value.count])
+        elif isinstance(value, list):
+            slots[name] = ("list", list(range(len(units), len(units) + len(value))))
+            units.extend(value)
+        else:
+            slots[name] = ("array", len(units))
+            units.append(value)
+    if not units:
+        record_gather_skip()
+        return dict(state)
+
+    plane = _GuardPlane(guard, reissue=reissue)
+
+    def gather(value: Tensor) -> List[Tensor]:
+        return plane.call(value, lambda _async_op: _Ready(gather_fn(value))).result
+
+    t0 = time.perf_counter() if timer is not None else 0.0
+    fn = gather if plane.active else gather_fn
+    if is_packable_gather(gather_fn):
+        gathered = _packed_gather_units(units, fn)
+    else:
+        gathered = [fn(u) for u in units]
+    if timer is not None:
+        timer((time.perf_counter() - t0) * 1e3)
+    if plane.degraded:
+        record_fault("degraded_computes")
+        gathered = [[u] for u in units]
+
     out: Dict[str, Any] = {}
     for name, value in state.items():
-        fx = reductions[name]
-        if isinstance(value, PaddedBuffer):
-            datas, counts = gather_fn(value.data), gather_fn(value.count)
+        fx, slot = reductions[name], slots[name]
+        if slot[0] == "none":
+            out[name] = None
+        elif slot[0] == "sketch":
+            out[name] = type(value)(stacked_reduction(fx)(torch.stack(list(gathered[slot[1]]))))
+        elif slot[0] == "buffer":
+            datas, counts = gathered[slot[1]], gathered[slot[2]]
             for g, c in zip(datas, counts):
                 handle_overflow(name, int(c), g.shape[0])
             parts = [g[: int(c)] for g, c in zip(datas, counts)]
             out[name] = dim_zero_cat(parts) if parts else value.data[:0]
-            continue
-        if is_sketch(value):
-            out[name] = type(value)(stacked_reduction(fx)(torch.stack(list(gather_fn(value.counts)))))
-            continue
-        if isinstance(value, list):
-            flat = [g for elem in value for g in gather_fn(elem)]
+        elif slot[0] == "list":
+            flat = [g for i in slot[1] for g in gathered[i]]
             reduction = stacked_reduction(fx)
             out[name] = reduction(flat) if reduction is not None else flat
-            continue
-        stacked = torch.stack(list(gather_fn(value)))
-        reduction = stacked_reduction(fx)
-        out[name] = reduction(stacked) if reduction is not None else stacked
+        else:
+            stacked = torch.stack(list(gathered[slot[1]]))
+            reduction = stacked_reduction(fx)
+            out[name] = reduction(stacked) if reduction is not None else stacked
     return out

@@ -221,6 +221,19 @@ def slab_spec_for(metric: Metric, name: str, num_slots: int, allowed: Tuple[str,
     return make_slab_spec(num_slots, spec, fx)
 
 
+def _mask_untouched(state: Dict[str, Any], slab_reduce: Dict[str, str], rows_state: str) -> Dict[str, Any]:
+    """``state`` with every min / max slab's rows that never took a sample set
+    to zero (the integrity scan's view of a slab state)."""
+    occupied = state[rows_state] > 0
+    out = {}
+    for name, value in state.items():
+        if slab_reduce.get(name) in ("min", "max") and not is_sketch(value):
+            occ = occupied.reshape(occupied.shape + (1,) * (value.ndim - occupied.ndim))
+            value = torch.where(occ, value, torch.zeros((), dtype=value.dtype, device=value.device))
+        out[name] = value
+    return out
+
+
 def routed_forward(metric: Metric, args: tuple, kwargs: Dict[str, Any], key_name: str, key: Any) -> Any:
     """The forward of a wrapper whose host table routes each batch
     (``Keyed(lru=True)``, ``HeavyHitters``): the batch is routed once, against
@@ -234,8 +247,10 @@ def routed_forward(metric: Metric, args: tuple, kwargs: Dict[str, Any], key_name
     metric._forward_cache = None
     check_same_device(metric.device, *args, *kwargs.values(), key)
     metric._note_rows(args, {**kwargs, key_name: key})
+    revert_to = metric._pre_update_snapshot()
     routing = metric._route(key)
     metric._scatter(args, kwargs, routing)
+    metric._guard_state_integrity("forward", revert_to)
     if not metric.compute_on_step:
         return None
     saved = metric._current_state()
@@ -447,6 +462,12 @@ class Keyed(Metric):
             return ids.cpu().numpy(), ids.to(self.device)
         host = np.asarray(slot).reshape(-1).astype(np.int64)
         return host, torch.from_numpy(host).to(self.device)
+
+    def _integrity_state(self) -> Dict[str, Any]:
+        """The ``check_finite`` view: min / max slabs with their untouched slots
+        masked to zero, whose identity fills rest at the dtype extremes the
+        saturation scan flags."""
+        return _mask_untouched(self._current_state(), self._slab_reduce, _ROWS_STATE)
 
     def _reset_slots(self, index: Tensor) -> None:
         """Return recycled rows to their per-slot defaults (the eviction path)."""

@@ -75,7 +75,7 @@ from metrics_tpu_torch.parallel.slab import (
 from metrics_tpu_torch.utils.data import is_batched
 from metrics_tpu_torch.utils.device import check_same_device
 from metrics_tpu_torch.utils.exceptions import TracingUnsupportedError
-from metrics_tpu_torch.wrappers.keyed import Keyed, _tree_map, per_sample_deltas, reset_rows_, sample_chunks
+from metrics_tpu_torch.wrappers.keyed import Keyed, _mask_untouched, _tree_map, per_sample_deltas, reset_rows_, sample_chunks
 
 __all__ = ["Windowed"]
 
@@ -400,6 +400,7 @@ class Windowed(Metric):
         self._forward_cache = None
         check_same_device(self.device, *args, *kwargs.values(), event_time)
         self._note_rows(args, {**kwargs, "event_time": event_time})
+        revert_to = self._pre_update_snapshot()  # before the route: a roll resets accumulated rows in place
         routing = self._route(args, kwargs, event_time, judge_prefix)
         acc = self._current_state()
         self._set_state(self.init_state())
@@ -412,6 +413,7 @@ class Windowed(Metric):
             self._set_state({name: acc[name] * routing.scale + batch[name] for name in acc})
         else:
             self._set_state(self.merge_states(acc, batch))
+        self._guard_state_integrity("forward", revert_to)
         if not self.compute_on_step:
             return None
         self._forward_cache = self._compute_on(batch, sync=self.dist_sync_on_step)
@@ -541,6 +543,12 @@ class Windowed(Metric):
             target.add_(deltas.sum(0, keepdim=True))
         else:
             scatter_rows_(target, reduce, deltas, ids)
+
+    def _integrity_state(self) -> Dict[str, Any]:
+        """The ``check_finite`` view: min / max slabs with their untouched
+        windows masked to zero, whose identity fills rest at the dtype
+        extremes the saturation scan flags."""
+        return _mask_untouched(self._current_state(), self._slab_reduce, _ROWS_STATE)
 
     def _reset_slots(self, slots: Any) -> None:
         """Return recycled ring slots to their per-slot defaults (the roll)."""

@@ -15,9 +15,9 @@ ring slots stay aligned, as a stream whose producers share one event clock:
   ``all_reduce`` per (dtype, op) bucket of the deduplicated state (one: every
   state is an int64 sum), where the stateful collection's per-step sync makes
   one a compute group (two), and its values equal one process's;
-* ``WatermarkAgreement.exchange()`` in a world of 3 raises
-  ``NotImplementedError`` (the cross-process exchange is not ported), and a
-  report with a cadence that is not yet due does not.
+* ``WatermarkAgreement.exchange()`` in a world of 3 agrees on the minimum of
+  the three processes' reports (one ``all_reduce``), and a report alone
+  dispatches no round.
 
 Tolerances: counts are integers and equal; values from equal counts by the
 same math are equal.
@@ -106,12 +106,12 @@ _WORKER = textwrap.dedent("""
     result["step_calls"] = list(calls)
 
     ag = pt.WatermarkAgreement(deadline_s=30.0, exchange_every_s=3600.0)
+    del calls[:]
     ag.report(rank, 10.0 * (rank + 1))
-    try:
-        ag.exchange()
-        result["exchange"] = "no error"
-    except NotImplementedError as err:
-        result["exchange"] = str(err)
+    report_calls = list(calls)
+    ag.exchange().result()
+    result["exchange"] = {{"agreed": ag.agreed(), "report_calls": report_calls, "calls": list(calls),
+                          "exchanges": ag.exchanges}}
     json.dump(result, open(out, "w"))
     dist.destroy_process_group()
 """)
@@ -209,4 +209,4 @@ def test_three_rank_gloo_windowed_and_pure_collection_sync(tmp_path):
         assert pure["calls"] == ["all_reduce"], r  # one int64 sum bucket for the whole collection
         assert res["step_calls"] == ["all_reduce", "all_reduce"]  # the stateful per-step sync: one a group
         assert pure["values"] == want, r
-        assert "ROADMAP section 1, item 3" in res["exchange"] and "world of 3" in res["exchange"]
+        assert res["exchange"] == {"agreed": 10.0, "report_calls": [], "calls": ["all_reduce"], "exchanges": 1}

@@ -31,6 +31,7 @@ import math
 import pickle
 import time
 import warnings
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +47,7 @@ import metrics_tpu_torch as pt
 import metrics_tpu_torch.core.streaming as pstream
 import metrics_tpu_torch.observability.counters as pcounters
 from metrics_tpu_torch.utils.exceptions import SyncTimeoutError, TracingUnsupportedError
+from tests.test_torch_sketch import _near_edge
 
 torch.set_num_threads(1)
 
@@ -279,12 +281,18 @@ def _value_rtol(kind):
 @pytest.mark.parametrize("mode, kind", _CASES)
 def test_windowed_equals_jax_step_by_step(mode, kind):
     stride = _MODES[mode].get("slide_s", _MODES[mode].get("window_s", 10.0))
-    stream = _event_stream(hash((mode, kind)) % 1000, steps=6, n=48, stride=stride)
+    stream = _event_stream(zlib.crc32(f"{mode}-{kind}".encode()) % 1000, steps=6, n=48, stride=stride)
     port = pt.Windowed(_inner(pt, kind), **_MODES[mode])
     ref = mt.Windowed(_inner(mt, kind), **_MODES[mode])
     pcounters.reset()
     jcounters.reset()
     for batch in stream:
+        if kind == "quantile":
+            # the JAX package's float32-log qsketch bucket is off near a bucket edge (ROADMAP section 3): the
+            # parity holds off that band, as in test_torch_quantile.py
+            spec = next(iter(port.metric._defaults.values()))  # the inner Quantile's QSketchSpec
+            keep = ~_near_edge(batch["preds"], (spec.alpha, spec.min_value, spec.max_value))
+            batch = {k: v[keep] for k, v in batch.items()}
         pa, pk = _feed(pt, kind, batch)
         ja, jk = _feed(mt, kind, batch)
         port.update(*pa, event_time=batch["t"], **pk)

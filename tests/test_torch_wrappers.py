@@ -624,13 +624,18 @@ def test_counters_slab_keys_equal_jax_after_the_same_stream():
             assert got[key] == want[key], key
         assert got["slab_dropped_samples"] == 4 * 5 and got["evicted_mass_dropped"] > 0
         assert set(got) == {"slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters",
-                            "wm_stragglers", "wm_exchange_calls", "watermark_agreement"}
+                            "wm_stragglers", "wm_exchange_calls", "watermark_agreement", "faults", "gather_skips",
+                            "deferred", "deferred_depth"}
+        for key in ("faults", "gather_skips", "deferred", "deferred_depth"):
+            assert got[key] == want[key], key
         pcounters.disable()
         keyed.update(*_args(b, ("probs", "classes")), slot=torch.from_numpy(b["slots"]))
         assert pcounters.snapshot(reset_after=True)["slab_dropped_samples"] == 5 * 5  # recorded with counting off
         assert pcounters.snapshot() == {"slab_dropped_samples": 0, "evicted_mass_dropped": 0, "slab_slots": {},
                                         "heavy_hitters": {}, "wm_stragglers": 0, "wm_exchange_calls": 0,
-                                        "watermark_agreement": {}}
+                                        "watermark_agreement": {}, "faults": dict.fromkeys(pcounters.FAULT_KINDS, 0),
+                                        "gather_skips": 0, "deferred": dict.fromkeys(pcounters.DEFERRED_KINDS, 0),
+                                        "deferred_depth": {}}
     finally:
         pcounters.disable()
         pcounters.reset()
