@@ -232,7 +232,25 @@ Phases, in order; each raises on failure and none is caught:
    exchange agrees on the minimum, holds the fast rank's windows open, excludes the silent rank past its deadline and
    lets it rejoin. Path L runs no hand-written kernel: the JAX package's guard, deferred and lag planes are host
    logic and collectives.
-16. The ``kernels`` JSON line, then the device JSON as the last line.
+16. Path M, the topology-aware and sparse sync planes, in the same group (nothing caught). M1: J1's
+   ``Keyed(AUROC(approx="sketch"), 10,000)`` (327.7 MB of state) through its ``sparse_plane(capacity=64)``, built at
+   reset: 20 steps of 65,536 events over 64 hot tenants drawn anew each step (the JAX package's ``bench.py`` sparse
+   scenario, touch = capacity = 64), one hinted round a step, then a 1,000-tenant step that must fall back and an
+   empty step that must skip; every merged view bit-equal to the dense bucketed ``all_reduce`` of the same state, the
+   first 2 to the CPU run; ms, bytes (bitmap, header and rows against the dense plane's), collectives and
+   synchronizing calls a round, and the plane's memory above the slab. M2: J4's ``HeavyHitters(AUROC sketch, 256,
+   (4, 1,024))`` over 1,000,000 Zipf keys (10 steps), capacity the hot tier: the tails ride the bitmap collective,
+   hot and tail counts bit-equal to the dense sync. M3: W1's ``Windowed(AUROC sketch)`` ring (12 steps): windows
+   bit-equal to the dense sync, at most 4 rows a round. M4: ``deferred_sparse_sync`` over M1's state equals the
+   synchronous round. M5: path A's collection with a one-rank ``MeshHierarchy``: the flat plane over ``ici``, the
+   same 2 ``all_reduce`` a step, values bit-equal. M6: four Gloo processes of this script (``--m6-worker``), 2
+   slices of 2, on the host: the two-stage sum and gather against the flat plane, the counters' bytes by crossing
+   against the JAX package's formula, ``slice_leader_gather``, ``buffer_all_gather``, and 5 sparse rounds a plane
+   over ``Keyed(AUROC sketch, 1,000)`` with each rank's own slots, flat (2 collectives a round) and two-level (4).
+   M7: ``auroc`` over path C's first batch inside and outside the deferred-check window: synchronizing calls of
+   each, equal values, equal errors on an all-positive and an all-negative target. Path M runs no hand-written
+   kernel: the JAX package's hierarchy, bitmap, row exchange and fold are XLA collectives and elementwise work.
+17. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -617,6 +635,9 @@ def phase_paths():
         t0 = time.perf_counter()
         path_l = run_path_l(dev, a_batches)
         path_l_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path_m = run_path_m(dev, a_batches)
+        path_m_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
 
@@ -651,10 +672,13 @@ def phase_paths():
     t0 = time.perf_counter()
     l_timings = check_path_l(path_l)
     print(f"    path L: {path_l_s:.1f} s on the card and in L6's processes, {time.perf_counter() - t0:.1f} s of checks")
+    t0 = time.perf_counter()
+    m_timings = check_path_m(path_m)
+    print(f"    path M: {path_m_s:.1f} s on the card and in M6's processes, {time.perf_counter() - t0:.1f} s of checks")
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
             "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings, "j": j_timings,
-            "k": k_timings, "l": l_timings}
+            "k": k_timings, "l": l_timings, "m": m_timings}
 
 
 def _profile_step(collection, batch):
@@ -5772,6 +5796,501 @@ def check_path_l(result):
     return timings
 
 
+# ---- path M: the topology-aware and sparse sync planes, at J1's, J4's and W1's sizes in the script's one-rank NCCL
+# group; M6 in four Gloo processes on the host (2 slices of 2)
+M_STEPS = 20
+M_TOUCH = M_CAPACITY = 64  # the JAX package's bench.py sparse scenario: SPARSE_TOUCH = SPARSE_CAPACITY = 64
+M_WIDE = 1_000  # slots of the step that must fall back
+M_CPU_STEPS = 2  # steps of M1 the CPU run repeats
+M2_STEPS, M3_STEPS = 10, 12  # J4's and W1's first steps (J4's host table is ~90% of its step)
+M6_WORLD, M6_SLICES, M6_SLOTS, M6_ROUNDS, M6_N = 4, 2, 1_000, 5, 4_096
+RTOL_M6 = 1e-6  # float32 sums of 4 terms, two stages against one
+
+
+def _m1_data():
+    """M1's steps: ``J_N`` events over ``M_TOUCH`` hot tenants drawn anew each step, then one step over ``M_WIDE``
+    tenants (the fallback) and one step with no events (the skip); J1's label and score model."""
+    rng = np.random.RandomState(71)
+    steps = []
+    for i in range(M_STEPS + 2):
+        n = 0 if i == M_STEPS + 1 else J_N
+        width = M_WIDE if i == M_STEPS else M_TOUCH
+        hot = rng.choice(J_SLOTS, width, replace=False)
+        labels = (rng.random_sample(n) < 0.3).astype(np.int64)
+        scores = (1 / (1 + np.exp(-(rng.standard_normal(n) + 1.5 * labels)))).astype(np.float32)
+        steps.append({"slots": hot[rng.randint(0, width, n)].astype(np.int64), "labels": labels, "scores": scores})
+    return steps
+
+
+def _m_state_equal(a, b):
+    import torch
+
+    return all(torch.equal(_m_payload(a[k]), _m_payload(b[k])) for k in a)
+
+
+def _m_payload(value):
+    return value.counts if hasattr(value, "counts") else value
+
+
+def _m_round(device, plane, state, touched=None):
+    """One sparse round, timed (host clock, synchronized before and after), with the counters it records and the
+    peak device bytes it allocates above what was live before it."""
+    import torch
+
+    from metrics_tpu_torch.observability import counters
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    counters.enable()
+    t0 = time.perf_counter()
+    merged = plane.sync(state, touched=touched)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    snap = counters.snapshot()
+    counters.disable()
+    peak = torch.cuda.max_memory_allocated() - base if device.type == "cuda" else None
+    return merged, {"ms": ms, "calls": snap["calls_by_kind"], "bytes": snap["bytes_by_kind_dtype"],
+                    "sync_bytes": snap["sync_bytes"], "sparse": snap["sparse"], "peak": peak}
+
+
+def _m6_worker(rank, port, out):
+    """One of M6's four Gloo processes (2 slices of 2): the two-stage sum and gather against the flat plane, the
+    slice-leader gather, ``buffer_all_gather`` and sparse rounds over a ``Keyed(AUROC sketch, 1,000)`` fed this rank's
+    own slots, flat and two-level, with the counters each records."""
+    import torch
+    import torch.distributed as dist
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.observability import counters
+    from metrics_tpu_torch.parallel import sync
+    from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_all_gather
+    from metrics_tpu_torch.parallel.slab import slab_touched_mask
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=M6_WORLD, rank=rank)
+    try:
+        h = pt.parallel.hierarchical_mesh(slices=M6_SLICES)
+        rng = np.random.RandomState(80 + rank)
+
+        def counted(fn):
+            counters.reset()
+            counters.enable()
+            try:
+                result = fn()
+            finally:
+                snap = counters.snapshot()
+                counters.disable()
+            return result, {k: snap[k] for k in ("calls_by_crossing", "bytes_by_crossing", "calls_by_kind")}
+
+        state = {"n": torch.from_numpy(rng.randint(-2**40, 2**40, 1000)),
+                 "f": torch.from_numpy(rng.rand(1000).astype(np.float32)),
+                 "cat": [torch.from_numpy(rng.rand(rank + 1, 3).astype(np.float32))]}
+        red = {"n": "sum", "f": "sum", "cat": "cat"}
+        hier, _ = counted(lambda: sync.all_reduce_state(state, red, group=h))
+        flat, _ = counted(lambda: sync.all_reduce_state(state, red))
+        sub, sub_red = {"n": state["n"], "f": state["f"]}, {"n": "sum", "f": "sum"}
+        _, hier_counted = counted(lambda: sync.all_reduce_state(sub, sub_red, group=h))
+        _, flat_counted = counted(lambda: sync.all_reduce_state(sub, sub_red))
+        res = {"int_equal": torch.equal(hier["n"], flat["n"]),
+               "float_rel": float(((hier["f"] - flat["f"]).abs() / flat["f"].abs()).max()),
+               "cat_equal": torch.equal(hier["cat"], flat["cat"]), "cat_rows": int(hier["cat"].shape[0]),
+               "grid": [list(g) for g in h.grid], "hier_counters": hier_counted, "flat_counters": flat_counted}
+        hh = pt.parallel.HostHierarchy(tuple(r // (M6_WORLD // M6_SLICES) for r in range(M6_WORLD)))
+        replicated = {"x": torch.full((4,), float(rank // (M6_WORLD // M6_SLICES) + 1))}
+        lead, lead_counted = counted(lambda: sync.host_gather(replicated, {"x": "sum"}, slice_leaders=hh))
+        res["leader"] = {"x": lead["x"].tolist(), "counters": lead_counted}
+        buf = PaddedBuffer(torch.from_numpy(rng.rand(6, 2).astype(np.float32)), torch.tensor(rank + 1))
+        bh, bf = buffer_all_gather(buf, h), buffer_all_gather(buf)
+        res["buffer"] = {"equal": torch.equal(bh.data, bf.data) and int(bh.count) == int(bf.count),
+                         "count": int(bh.count), "capacity": int(bh.data.shape[0])}
+        for label, group in (("flat", None), ("hier", h)):
+            keyed = pt.Keyed(pt.AUROC(approx="sketch", device="cpu"), num_slots=M6_SLOTS)
+            plane = keyed.sparse_plane(group, capacity=M_CAPACITY)
+            own = np.arange(rank * (M6_SLOTS // M6_WORLD), (rank + 1) * (M6_SLOTS // M6_WORLD))
+            rounds = []
+            for _ in range(M6_ROUNDS):
+                slots = torch.from_numpy(rng.choice(own, 8, replace=False)[rng.randint(0, 8, M6_N)])
+                labels = torch.from_numpy((rng.random_sample(M6_N) < 0.3).astype(np.int64))
+                keyed.update(torch.from_numpy(rng.rand(M6_N).astype(np.float32)), labels, slot=slots)
+                current = keyed._current_state()
+                merged, calls = counted(lambda: plane.sync(current, touched=slab_touched_mask(slots, M6_SLOTS)))
+                rounds.append({"equal": _m_state_equal(merged, sync.all_reduce_state(current, keyed._reductions)),
+                               "calls": calls["calls_by_kind"], "crossings": calls["calls_by_crossing"]})
+            res[label] = {"rounds": rounds, "modes": [plane.rounds, plane.fallbacks, plane.skips]}
+        with open(out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _start_m6():
+    """M6's four Gloo processes of this script (``--m6-worker``), started now, on the CPU."""
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(__file__)), prefix="_m6_")
+    outs = [os.path.join(tmp, f"m6_{r}.json") for r in range(M6_WORLD)]
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--m6-worker", str(r), str(port), outs[r]],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(M6_WORLD)]
+    return {"procs": procs, "outs": outs, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def _finish_m6(started):
+    """Wait for M6's processes (killed if they outlive their timeout) and read their results."""
+    import shutil
+
+    procs = started["procs"]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    try:
+        if [p.returncode for p in procs] != [0] * M6_WORLD:
+            raise AssertionError(f"M6 workers failed: {[p.returncode for p in procs]} {logs}")
+        results = []
+        for path in started["outs"]:
+            with open(path) as f:
+                results.append(json.load(f))
+    finally:
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    return {"ranks": results, "s": time.perf_counter() - started["t0"]}
+
+
+def run_path_m(device, a_batches):
+    """Path M inside the caller's process group: M1-M5 and M7 on the card, timed, with what the checks need on the
+    host; M6 in four Gloo processes started first and read last."""
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.functional.classification.auroc import _auroc_compute, _auroc_update
+    from metrics_tpu_torch.observability import counters
+    from metrics_tpu_torch.parallel import sync
+    from metrics_tpu_torch.parallel.deferred import deferred_sparse_sync
+    from metrics_tpu_torch.parallel.slab import slab_touched_mask
+
+    m6 = _start_m6()
+    out = {}
+    to = (lambda x: torch.from_numpy(x).to(device))
+
+    # M1: J1's Keyed(AUROC(approx="sketch"), 10,000) through its sparse plane, one hinted round a step
+    data = _m1_data()
+    keyed = pt.Keyed(pt.AUROC(approx="sketch", device=device), num_slots=J_SLOTS)
+    _sync(device)
+    before = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    plane = keyed.sparse_plane(capacity=M_CAPACITY)
+    _sync(device)
+    plane_bytes = (torch.cuda.memory_allocated() - before) if device.type == "cuda" else None
+    rounds, early, dense_equal = [], None, []
+    for i, b in enumerate(data):
+        slots = to(b["slots"])
+        if b["slots"].size:
+            keyed.update(to(b["scores"]), to(b["labels"]), slot=slots)
+        state = keyed._current_state()
+        merged, stats = _m_round(device, plane, state, touched=slab_touched_mask(slots, J_SLOTS))
+        stats["mode"] = (plane.rounds, plane.fallbacks, plane.skips)
+        rounds.append(stats)
+        dense_equal.append(_m_state_equal(merged, sync.all_reduce_state(state, keyed._reductions)))
+        if i == M_CPU_STEPS - 1:
+            early = {k: _j_host(_m_payload(v)) for k, v in merged.items()}
+    counters.reset()
+    counters.enable()
+    state = keyed._current_state()
+    dense_ms = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        sync.all_reduce_state(state, keyed._reductions)
+        _sync(device)
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+    dense_bytes = counters.snapshot()["sync_bytes"] // 3
+    counters.disable()
+    profiles = {}
+    if device.type == "cuda":  # a sparse round (the last step's hint again: 64 rows of zero deltas) and a dense sync
+        mask = slab_touched_mask(to(data[M_STEPS - 1]["slots"]), J_SLOTS)
+        profiles["sparse"] = _j_profile(lambda: plane.sync(state, touched=mask))
+        profiles["dense"] = _j_profile(lambda: sync.all_reduce_state(state, keyed._reductions))
+    syncs = {}
+    if device.type == "cuda":  # the synchronizing calls of one more round of each mode
+        for mode, width in (("sparse", M_TOUCH), ("fallback", M_WIDE), ("skip", 0)):
+            rng = np.random.RandomState(72 + width)
+            n = J_N if width else 0
+            ids = rng.choice(J_SLOTS, max(width, 1), replace=False)[rng.randint(0, max(width, 1), n)]
+            if n:
+                keyed.update(to(rng.rand(n).astype(np.float32)), to(rng.randint(0, 2, n)), slot=to(ids))
+            mask = slab_touched_mask(to(ids.astype(np.int64)), J_SLOTS)
+            sites, _ = _host_sync_sites(lambda: plane.sync(keyed._current_state(), touched=mask))
+            syncs[mode] = {"calls": sum(sites.values()), "sites": sites.most_common(4)}
+    out["M1"] = {"rounds": rounds, "dense_equal": dense_equal, "early": early, "plane_bytes": plane_bytes,
+                 "state_bytes": _j_bytes(keyed), "dense_ms": dense_ms, "dense_bytes": dense_bytes, "syncs": syncs,
+                 "profiles": profiles}
+
+    # M4: deferred_sparse_sync over M1's state, one more step of M_TOUCH tenants
+    rng = np.random.RandomState(73)
+    ids = to(rng.choice(J_SLOTS, M_TOUCH, replace=False)[rng.randint(0, M_TOUCH, J_N)].astype(np.int64))
+    keyed.update(to(rng.rand(J_N).astype(np.float32)), to(rng.randint(0, 2, J_N)), slot=ids)
+    state = keyed._current_state()
+    want = sync.all_reduce_state(state, keyed._reductions)
+    _sync(device)
+    t0 = time.perf_counter()
+    handle = deferred_sparse_sync(plane, state, touched=slab_touched_mask(ids, J_SLOTS), watermark=M_STEPS)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    got = handle.result()
+    _sync(device)
+    fence_ms = (time.perf_counter() - t0) * 1e3
+    deferred_equal = _m_state_equal(got, want)
+    after = plane.sync(keyed._current_state())  # a synchronous round after it: nothing changed, a skip
+    out["M4"] = {"equal": deferred_equal, "after_equal": _m_state_equal(after, want), "dispatch_ms": dispatch_ms,
+                 "fence_ms": fence_ms, "watermark": handle.watermark, "mode": (plane.rounds, plane.fallbacks,
+                                                                             plane.skips)}
+    del plane, keyed, merged, state, want, got, after
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # M2: J4's HeavyHitters(AUROC sketch) over 1,000,000 keys through its sparse plane (capacity: the hot tier)
+    keys = _j_keys()[:M2_STEPS]
+    rng = np.random.RandomState(74)
+    hh = pt.HeavyHitters(pt.AUROC(approx="sketch", device=device), num_hot_slots=J4_HOT, tail=J4_TAIL)
+    hplane = hh.sparse_plane(capacity=J4_HOT)
+    m2 = []
+    for k in keys:
+        labels = (rng.random_sample(J_N) < 0.3).astype(np.int64)
+        scores = (1 / (1 + np.exp(-(rng.standard_normal(J_N) + 1.5 * labels)))).astype(np.float32)
+        hh.update(to(scores), to(labels), key=k)
+        state = hh._current_state()
+        merged, stats = _m_round(device, hplane, state)
+        stats["equal"] = _m_state_equal(merged, sync.all_reduce_state(state, hh._reductions))
+        stats["mode"] = (hplane.rounds, hplane.fallbacks, hplane.skips)
+        m2.append(stats)
+    out["M2"] = {"rounds": m2, "dense_names": list(hplane._dense_names), "state_bytes": _j_bytes(hh)}
+    del hplane, hh
+
+    # M3: W1's Windowed(AUROC sketch, 60 s, 4 windows, 180 s lateness) stream through its sparse plane
+    events = _k_events(61, M3_STEPS, W1_ADVANCE, (0.05, (0.0, 150.0)), (0.005, (250.0, 400.0)))
+    win = pt.Windowed(pt.AUROC(approx="sketch", device=device), window_s=W1_WINDOW_S, num_windows=W1_WINDOWS,
+                      allowed_lateness_s=W1_LATENESS)
+    wplane = win.sparse_plane()
+    m3 = []
+    for e in events:
+        win.update(to(e["scores"]), to(e["labels"]), event_time=e["t"])
+        state = win._current_state()
+        merged, stats = _m_round(device, wplane, state)
+        stats["equal"] = _m_state_equal(merged, sync.all_reduce_state(state, win._reductions))
+        m3.append(stats)
+    out["M3"] = {"rounds": m3, "capacity": wplane.capacity, "state_bytes": _j_bytes(win)}
+    del wplane, win
+
+    # M5: path A's collection with a one-rank MeshHierarchy as every member's group, against the flat run
+    h = pt.parallel.hierarchical_mesh()
+    flat_col = _main_collection(device, dist_sync_on_step=True)
+    hier_col = _main_collection(device, dist_sync_on_step=True, process_group=h)
+    m5 = {"equal": [], "calls": [], "crossings": None, "ms": []}
+    for b in a_batches:
+        want = {k: v.item() for k, v in flat_col(*b).items()}
+        counters.reset()
+        counters.enable()
+        with _CountCollectives() as calls:
+            t0 = time.perf_counter()
+            got = {k: v.item() for k, v in hier_col(*b).items()}
+            m5["ms"].append((time.perf_counter() - t0) * 1e3)
+        m5["crossings"] = counters.snapshot()["calls_by_crossing"]
+        counters.disable()
+        m5["equal"].append(got == want)
+        m5["calls"].append(dict(calls))
+    m5["epoch_equal"] = ({k: v.item() for k, v in hier_col.compute().items()}
+                         == {k: v.item() for k, v in flat_col.compute().items()})
+    out["M5"] = m5
+
+    # M7: auroc over path C's first batch inside and outside the deferred-check window
+    p, t = (to(x) for x in _curve_batches(1, C_N)[0])
+
+    def outside():
+        preds, target, mode = _auroc_update(p, t)
+        return _auroc_compute(preds, target, mode, pos_label=1)
+
+    m7 = {}
+    for label, fn in (("window", lambda: pt.functional.auroc(p, t, pos_label=1)), ("no_window", outside)):
+        fn()
+        _sync(device)
+        t0 = time.perf_counter()
+        value = fn()
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        sites, _ = _host_sync_sites(fn) if device.type == "cuda" else (Counter(), None)
+        m7[label] = {"value": value.item(), "ms": ms, "syncs": sum(sites.values()), "sites": sites.most_common(4)}
+    errors = {}
+    for label, target in (("all_positive", torch.ones_like(t)), ("all_negative", torch.zeros_like(t))):
+        for form, fn in (("window", lambda y: pt.functional.auroc(p, y, pos_label=1)),
+                         ("no_window", lambda y: _auroc_compute(*_auroc_update(p, y), pos_label=1))):
+            try:
+                fn(target)
+                errors[(label, form)] = None
+            except ValueError as err:
+                errors[(label, form)] = str(err)
+    m7["errors"] = {f"{a}/{b}": v for (a, b), v in errors.items()}
+    out["M7"] = m7
+    out["M6"] = _finish_m6(m6)
+    return out
+
+
+def _m_rounds_line(label, rounds):
+    ms = [r["ms"] for r in rounds]
+    return (f"median {statistics.median(ms):.3f} ms a round (first {ms[0]:.1f}); collectives a round"
+            f" {rounds[-1]['calls']}; bytes a round {rounds[-1]['sync_bytes']:,}")
+
+
+def check_path_m(result):
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.parallel.slab import slab_touched_mask
+
+    timings = {}
+    print(f"[16] path M: the topology-aware and sparse sync planes at J1's ({J_SLOTS:,} tenants), J4's and W1's sizes;"
+          f" {J_N:,} events a step over {M_TOUCH} hot tenants, capacity {M_CAPACITY}")
+
+    # M1
+    m1 = result["M1"]
+    rounds = m1["rounds"]
+    sparse = rounds[:M_STEPS]
+    modes = [r["mode"] for r in rounds]
+    _check(modes == [(i + 1, 0, 0) for i in range(M_STEPS)] + [(M_STEPS + 1, 1, 0), (M_STEPS + 2, 1, 1)],
+           f"M1: {M_STEPS} sparse rounds of {M_TOUCH} touched tenants, then a {M_WIDE}-tenant step that falls back and an"
+           " empty step that skips")
+    _check(all(m1["dense_equal"]), "M1: every round's merged view equals the dense bucketed all_reduce of the same"
+           " state bit for bit")
+    _check(all(r["calls"] == {"psum": 1, "all_gather": 1} for r in sparse)
+           and rounds[M_STEPS + 1]["calls"] == {"psum": 1}
+           and rounds[M_STEPS]["calls"].get("psum", 0) >= 2 and "all_gather" not in rounds[M_STEPS]["calls"],
+           f"M1: collectives a round: {sparse[-1]['calls']} sparse, {rounds[M_STEPS + 1]['calls']} skip,"
+           f" {rounds[M_STEPS]['calls']} fallback (the bitmap and the dense plane's buckets)")
+    _check(all(r["sparse"]["rows"] == M_TOUCH for r in sparse), f"M1: {M_TOUCH} union rows a sparse round")
+    cpu = pt.Keyed(pt.AUROC(approx="sketch", device="cpu"), num_slots=J_SLOTS)
+    cplane = cpu.sparse_plane(capacity=M_CAPACITY)
+    for b in _m1_data()[:M_CPU_STEPS]:
+        slots = torch.from_numpy(b["slots"])
+        cpu.update(torch.from_numpy(b["scores"]), torch.from_numpy(b["labels"]), slot=slots)
+        merged = cplane.sync(cpu._current_state(), touched=slab_touched_mask(slots, J_SLOTS))
+    _j_states_equal(f"M1 merged view against the CPU run after {M_CPU_STEPS} rounds", m1["early"],
+                    {k: _j_host(_m_payload(v)) for k, v in merged.items()})
+    med = statistics.median(r["ms"] for r in sparse)
+    row_bytes = sparse[-1]["sync_bytes"]
+    print(f"    M1 sparse: {_m_rounds_line('M1', sparse)} (bitmap {sparse[-1]['bytes'].get('psum:int64', 0):,} B,"
+          f" header + rows {sparse[-1]['bytes'].get('all_gather:uint8', 0):,} B) against the dense plane's"
+          f" {m1['dense_bytes']:,} B in {statistics.median(m1['dense_ms']):.3f} ms; fallback round"
+          f" {rounds[M_STEPS]['ms']:.3f} ms, skip round {rounds[M_STEPS + 1]['ms']:.3f} ms")
+    peak = max(r["peak"] for r in sparse) if sparse[0]["peak"] is not None else None
+
+    def mib(x):
+        return "not measured" if x is None else f"{x / 2**20:.1f} MiB"
+
+    print(f"    M1 memory: the plane's two copies {mib(m1['plane_bytes'])} above the {m1['state_bytes'] / 1e6:.1f} MB"
+          f" slab; a sparse round's peak {mib(peak)} above what was live; a fallback round's"
+          f" {mib(rounds[M_STEPS]['peak'])}")
+    for mode, s in m1["syncs"].items():
+        print(f"    M1 synchronizing calls, one {mode} round: {s['calls']} {s['sites']}")
+    for label, prof in m1["profiles"].items():
+        device = f"{prof['device_ms']:.3f} device ms" if prof["device_ms"] else "device time not measured"
+        print(f"    M1 profiled {label} round: {device}, {prof['ops']:.0f} operations; top"
+              f" {[(r['name'][:40], round(r['us_per_call'], 1)) for r in prof['top'][:5]]}")
+    timings["M1"] = {"ms_per_round": med, "bytes_per_round": row_bytes, "dense_bytes": m1["dense_bytes"],
+                     "dense_ms": statistics.median(m1["dense_ms"]), "fallback_ms": rounds[M_STEPS]["ms"],
+                     "skip_ms": rounds[M_STEPS + 1]["ms"], "plane_bytes": m1["plane_bytes"], "round_peak_bytes": peak,
+                     "device_ms": {k: v["device_ms"] for k, v in m1["profiles"].items()},
+                     "host_syncs": {k: v["calls"] for k, v in m1["syncs"].items()}}
+
+    # M2
+    m2 = result["M2"]
+    _check(all(r["equal"] for r in m2["rounds"]) and all(r["mode"][1] == 0 for r in m2["rounds"]),
+           f"M2 HeavyHitters(AUROC sketch, {J4_HOT}, {J4_TAIL}): hot and tail counts equal the dense sync bit for bit"
+           f" every round, no fallback at capacity {J4_HOT}")
+    _check(set(m2["dense_names"]) == {"AUROC_hist_tail", "hh_tail_rows"} or all(
+        n.endswith("_tail") or n == "hh_tail_rows" for n in m2["dense_names"]),
+        f"M2: the tails {m2['dense_names']} are dense residuals")
+    _check(all(r["calls"] == {"psum": 1, "all_gather": 1} for r in m2["rounds"]),
+           "M2: the tails' deltas ride the bitmap collective: one all_reduce and one all_gather a round")
+    rows = [r["sparse"]["rows"] for r in m2["rounds"]]
+    print(f"    M2: {_m_rounds_line('M2', m2['rounds'])}; union rows a round {rows}; state {m2['state_bytes']:,} B")
+    timings["M2"] = {"ms_per_round": statistics.median(r["ms"] for r in m2["rounds"]), "rows": rows,
+                     "bytes_per_round": m2["rounds"][-1]["sync_bytes"]}
+
+    # M3
+    m3 = result["M3"]
+    rows = [r["sparse"]["rows"] for r in m3["rounds"]]
+    _check(all(r["equal"] for r in m3["rounds"]) and m3["capacity"] == W1_WINDOWS and max(rows) <= W1_WINDOWS,
+           f"M3 Windowed(AUROC sketch) over W1's stream: every window's counts equal the dense sync bit for bit; rows"
+           f" exchanged a round {rows} (at most the ring's {W1_WINDOWS})")
+    print(f"    M3: {_m_rounds_line('M3', m3['rounds'])}; state {m3['state_bytes']:,} B")
+    timings["M3"] = {"ms_per_round": statistics.median(r["ms"] for r in m3["rounds"]), "rows": rows}
+
+    # M4
+    m4 = result["M4"]
+    _check(m4["equal"] and m4["after_equal"] and m4["watermark"] == M_STEPS,
+           f"M4: deferred_sparse_sync over M1's state dispatches ({m4['dispatch_ms']:.3f} ms, the state's copy"
+           f" included) and fences ({m4['fence_ms']:.3f} ms); result() equals the dense sync, and the synchronous round"
+           " after it too")
+    timings["M4"] = {"dispatch_ms": m4["dispatch_ms"], "fence_ms": m4["fence_ms"]}
+
+    # M5
+    m5 = result["M5"]
+    per_step = m5["calls"][-1]["all_reduce"]
+    _check(all(m5["equal"]) and m5["epoch_equal"] and all(c["all_reduce"] == 2 for c in m5["calls"])
+           and set(m5["crossings"]) == {"ici"},
+           f"M5: path A's collection with a one-rank MeshHierarchy equals the flat run bit for bit every step and at the"
+           f" epoch, with {per_step} all_reduce a step, counted at {m5['crossings']}"
+           f" ({statistics.median(m5['ms']):.3f} ms/step)")
+    timings["M5_ms_per_step"] = statistics.median(m5["ms"])
+
+    # M6
+    ranks = result["M6"]["ranks"]
+    payload = 1000 * 8 + 1000 * 4
+    for r, res in enumerate(ranks):
+        _check(res["int_equal"] and res["float_rel"] <= RTOL_M6 and res["cat_equal"] and res["cat_rows"] == 10
+               and res["grid"] == [[0, 1], [2, 3]],
+               f"M6 rank {r}: the two-stage sum equals the flat sum (int64 bit for bit, float32 within {RTOL_M6}) and the"
+               f" gather comes back in flat rank order")
+        _check(res["hier_counters"]["bytes_by_crossing"] == {"ici": payload, "dcn": payload}
+               and res["flat_counters"]["bytes_by_crossing"] == {"world": payload * (M6_WORLD - 1)},
+               f"M6 rank {r}: bytes by crossing equal the JAX package's formula, payload x (fanout - 1):"
+               f" {res['hier_counters']['bytes_by_crossing']} two-stage, {res['flat_counters']['bytes_by_crossing']}"
+               " flat")
+        _check(res["leader"]["x"] == [3.0] * 4 and res["leader"]["counters"]["bytes_by_crossing"] == {"dcn": 16},
+               f"M6 rank {r}: slice_leader_gather keeps one copy a slice, counted at dcn with slice fanout")
+        _check(res["buffer"]["equal"] and res["buffer"]["count"] == 10 and res["buffer"]["capacity"] == 24,
+               f"M6 rank {r}: buffer_all_gather two-level equals flat")
+        for label, per_round in (("flat", 2), ("hier", 4)):
+            part = res[label]
+            _check(all(x["equal"] for x in part["rounds"]) and part["modes"] == [M6_ROUNDS, 0, 0]
+                   and all(sum(x["calls"].values()) == per_round for x in part["rounds"]),
+                   f"M6 rank {r} {label}: {M6_ROUNDS} sparse rounds over Keyed(AUROC sketch, {M6_SLOTS:,}) with each rank's"
+                   f" own slots equal the flat dense sync bit for bit, {per_round} collectives a round")
+    print(f"    M6: four Gloo processes, {result['M6']['s']:.1f} s with their start")
+
+    # M7
+    m7 = result["M7"]
+    _check(m7["window"]["value"] == m7["no_window"]["value"],
+           f"M7: auroc over path C's first batch: {m7['window']['syncs']} synchronizing calls inside the window"
+           f" ({m7['window']['ms']:.3f} ms), {m7['no_window']['syncs']} outside ({m7['no_window']['ms']:.3f} ms);"
+           " equal values")
+    errors = m7["errors"]
+    _check(errors["all_positive/window"] == errors["all_positive/no_window"] and "No negative" in errors[
+        "all_positive/window"] and errors["all_negative/window"] == errors["all_negative/no_window"]
+           and "No positive" in errors["all_negative/window"],
+           "M7: an all-positive and an all-negative target raise the same errors inside and outside the window")
+    print(f"    M7 synchronizing call sites: window {m7['window']['sites']}, outside {m7['no_window']['sites']}")
+    timings["M7"] = {k: {"syncs": m7[k]["syncs"], "ms": m7[k]["ms"]} for k in ("window", "no_window")}
+    return timings
+
+
 def main() -> int:
     import torch
 
@@ -5840,6 +6359,9 @@ def main() -> int:
         "path_k_peak_bytes": {k: v["peak_bytes"] for k, v in paths["k"].items() if k != "W6"},
         "path_k_forward_batched_ms": paths["k"]["W6"]["forward_batched_ms"],
         "path_l_ms_per_step": {k: v["ms_per_step"] for k, v in paths["l"].items() if k.startswith("L1_sync")},
+        "path_m_ms_per_round": {k: paths["m"][k]["ms_per_round"] for k in ("M1", "M2", "M3")},
+        "path_m1_bytes_per_round": {"sparse": paths["m"]["M1"]["bytes_per_round"],
+                                    "dense": paths["m"]["M1"]["dense_bytes"]},
     }
 
     print(json.dumps({"kernels": [kernel]}))
@@ -5853,4 +6375,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--l6-worker":  # one of path L's two Gloo processes
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(_l6_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--m6-worker":  # one of path M's four Gloo processes
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(_m6_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -386,7 +386,9 @@ class MetricCollection(nn.ModuleDict):
         the first entry's ``process_group``): the leaves of every entry go
         through ONE call of the bucketed plane, so the whole collection makes
         one ``all_reduce`` per (dtype, op) bucket and one gather for its
-        gather states. The members' own states are left as they are.
+        gather states. The members' own states are left as they are. A
+        :class:`~metrics_tpu_torch.parallel.placement.MeshHierarchy` as
+        ``group`` stages every collective over its two levels.
 
         ``deferred=True`` enters the same collectives without waiting and
         returns one :class:`~metrics_tpu_torch.parallel.deferred.SyncHandle`

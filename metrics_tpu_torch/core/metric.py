@@ -506,7 +506,10 @@ class Metric(nn.Module, ABC):
         """The cross-rank reduction of ``state`` over ``group`` (default: the
         metric's ``process_group``) through the bucketed plane: one
         ``all_reduce`` per (dtype, op) bucket, one gather for the list, stack
-        and buffer states. The metric's own state is left as it is.
+        and buffer states. The metric's own state is left as it is. A
+        :class:`~metrics_tpu_torch.parallel.placement.MeshHierarchy` as
+        ``group`` stages every collective over its two levels (the
+        counterpart of the JAX package's mesh form).
 
         ``deferred=True`` enters the same collectives without waiting and
         returns a :class:`~metrics_tpu_torch.parallel.deferred.SyncHandle`

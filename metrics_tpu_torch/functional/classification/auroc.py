@@ -5,8 +5,9 @@ Counterpart of ``metrics_tpu/functional/classification/auroc.py``
 ``_check_pos_neg_eager``): per-class AUROC by the static-shape kernel with
 macro / weighted / micro averaging, and partial AUC (``max_fpr``) with the
 McClish correction. The all-positive / all-negative checks reduce on the
-device and cost one host read of the stacked flags; the JAX package's
-deferral window has no counterpart here.
+device and cost one host read of the stacked flags. ``auroc`` runs in a
+``deferred_value_checks`` window, as in the JAX package: the input checks and
+these flags go into flight as non-blocking copies and one wait reads them all.
 """
 from typing import Optional, Sequence
 
@@ -18,7 +19,12 @@ from metrics_tpu_torch.functional.classification.curve_static import (
     binary_roc_padded,
     partial_auroc_from_roc,
 )
-from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.utils.checks import (
+    _input_format_classification,
+    defer_or_run_value_check,
+    deferred_value_checks,
+    flags_when_checked,
+)
 from metrics_tpu_torch.utils.data import ClassScores
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType
 from metrics_tpu_torch.utils.prints import rank_zero_warn_once
@@ -29,14 +35,19 @@ _NO_POSITIVES = "No positive samples in targets, true positive value should be m
 
 def _check_pos_neg_eager(y: Tensor) -> None:
     """Raise when ``y`` (0/1, one column per class on the last axis, or 1-D)
-    has a class with no negative or no positive sample. ONE host read."""
+    has a class with no negative or no positive sample. ONE host read, which a
+    ``deferred_value_checks`` window postpones."""
     pos = y > 0
-    flags = torch.stack([torch.all(pos, dim=0), torch.any(pos, dim=0)]).reshape(2, -1).tolist()
-    for all_pos, any_pos in zip(*flags):
-        if all_pos:
-            raise ValueError(_NO_NEGATIVES)
-        if not any_pos:
-            raise ValueError(_NO_POSITIVES)
+    read = flags_when_checked(torch.stack([torch.all(pos, dim=0), torch.any(pos, dim=0)]).reshape(2, -1))
+
+    def finalize() -> None:
+        for all_pos, any_pos in zip(*read()):
+            if all_pos:
+                raise ValueError(_NO_NEGATIVES)
+            if not any_pos:
+                raise ValueError(_NO_POSITIVES)
+
+    defer_or_run_value_check(finalize)
 
 
 def _weights(sample_weights: Optional[Sequence], device: torch.device) -> Optional[Tensor]:
@@ -187,5 +198,10 @@ def auroc(
         >>> round(float(auroc(preds, target, num_classes=3)), 4)
         0.7778
     """
-    preds, target, mode = _auroc_update(preds, target, validate=validate)
-    return _auroc_compute(preds, target, mode, num_classes, pos_label, average, max_fpr, sample_weights, validate)
+    # one deferred-read window: the input checks, the positive / negative
+    # checks and the result go into flight together, and one wait reads them
+    with deferred_value_checks():
+        preds, target, mode = _auroc_update(preds, target, validate=validate)
+        result = _auroc_compute(preds, target, mode, num_classes, pos_label, average, max_fpr, sample_weights,
+                                validate)
+    return result

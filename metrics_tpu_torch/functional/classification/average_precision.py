@@ -15,6 +15,7 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _precision_recall_curve_compute,
     _precision_recall_curve_update,
 )
+from metrics_tpu_torch.utils.checks import deferred_value_checks
 from metrics_tpu_torch.utils.data import ClassScores
 
 
@@ -78,5 +79,7 @@ def average_precision(
         >>> [float(x) for x in average_precision(pred, target, num_classes=5)]
         [1.0, 1.0, 0.25, 0.25, nan]
     """
-    preds, target, num_classes, pos_label = _average_precision_update(preds, target, num_classes, pos_label)
-    return _average_precision_compute(preds, target, num_classes, pos_label, sample_weights)
+    with deferred_value_checks():  # the input checks' reads wait once, with the result's
+        preds, target, num_classes, pos_label = _average_precision_update(preds, target, num_classes, pos_label)
+        result = _average_precision_compute(preds, target, num_classes, pos_label, sample_weights)
+    return result

@@ -1,12 +1,33 @@
-"""Counters of the keyed wrappers, the watermark agreement and the guarded and
-deferred sync planes.
+"""Counters of the sync planes, the keyed wrappers and the watermark agreement.
 
-Counterpart of the slab, watermark, fault and deferred parts of
-``metrics_tpu/observability/counters.py``: the :class:`CollectiveCounters`
-registry, ``enable`` / ``disable`` / ``is_enabled`` / ``reset`` /
-``snapshot``, and the record functions the wrappers,
-``core/streaming.WatermarkAgreement``, the guard plane of ``parallel/sync.py``
-and ``parallel/deferred.py`` call. What is counted:
+Counterpart of the collective, slab, watermark, fault, deferred and sparse
+parts of ``metrics_tpu/observability/counters.py``: the
+:class:`CollectiveCounters` registry, ``enable`` / ``disable`` /
+``is_enabled`` / ``reset`` / ``snapshot``, and the record functions the sync
+planes (``parallel/sync.py``, ``parallel/buffer.py``, ``parallel/sparse.py``,
+``parallel/deferred.py``), the wrappers and
+``core/streaming.WatermarkAgreement`` call. What is counted:
+
+- **collectives**: every collective a sync plane enters, at its issue site
+  (a retry that enters it again counts again), while counting is enabled:
+  ``calls_by_kind`` and ``bytes_by_kind_dtype`` (the local payload entering
+  it) under the JAX package's kind names (``psum`` / ``pmin`` / ``pmax`` for
+  ``all_reduce`` by its op, ``all_gather``, ``process_allgather`` for the
+  host plane's gathers), and ``calls_by_crossing`` / ``bytes_by_crossing``
+  over ``ici`` / ``dcn`` / ``world``. Per-crossing bytes are ring traffic,
+  ``payload * (fanout - 1)`` for a collective over ``fanout`` ranks (the
+  payload alone when the fanout is unknown or 1): a flat sum over W ranks
+  costs ``p * (W - 1)`` at ``world``, the two-stage sum of a hierarchy of S
+  slices of L ranks ``p * (L - 1)`` at ``ici`` and ``p * (S - 1)`` at
+  ``dcn``. ``collective_calls`` / ``sync_bytes`` are the totals.
+- **states_synced**: state leaves entering a sync plane, while counting is
+  enabled.
+- **sparse**: the sparse plane's round ledger ``{syncs, rows, fallbacks,
+  skips}`` (:data:`SPARSE_KINDS`): rounds run, union rows exchanged, rounds
+  that overflowed the capacity and ran the dense plane, and empty rounds
+  that entered no row exchange (each also a ``gather_skips``). Recorded even
+  while counting is disabled: a fallback is evidence that the capacity
+  estimate broke.
 
 - **slab_dropped_samples**: samples whose slot id fell outside a slab's
   ``[0, K)`` range and were dropped by the scatter (``parallel/slab.py``).
@@ -45,22 +66,23 @@ and ``parallel/deferred.py`` call. What is counted:
   metric's lag-k handle ring, refreshed by every deferring forward while
   counting is enabled.
 
-The collective, cache, sparse and serving counters of the JAX package's
-registry are not ported yet; ``snapshot()`` carries the eleven keys above,
-with the JAX package's names and layouts. Counting is off by default; all
-mutation happens under one lock.
+The cache and serving counters of the JAX package's registry are not ported
+yet; ``snapshot()`` carries the keys above, with the JAX package's names and
+layouts. Counting is off by default; all mutation happens under one lock.
 """
 import threading
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 __all__ = [
     "COUNTERS",
     "CollectiveCounters",
     "DEFERRED_KINDS",
     "FAULT_KINDS",
+    "SPARSE_KINDS",
     "disable",
     "enable",
     "is_enabled",
+    "record_collective",
     "record_deferred",
     "record_deferred_depth",
     "record_evicted_mass",
@@ -69,6 +91,10 @@ __all__ = [
     "record_heavy_hitters",
     "record_slab_dropped",
     "record_slab_slots",
+    "record_sparse_fallback",
+    "record_sparse_round",
+    "record_sparse_skip",
+    "record_states_synced",
     "record_watermark_agreement",
     "record_wm_exchange",
     "record_wm_straggler",
@@ -91,13 +117,26 @@ DEFERRED_KINDS = (
     "completed",  # syncs whose work finished
 )
 
+# the sparse plane's round ledger (parallel/sparse.py), all four in every snapshot
+SPARSE_KINDS = (
+    "syncs",  # sparse rounds run (every mode: exchange, fallback, skip)
+    "rows",  # union rows exchanged, summed over rounds
+    "fallbacks",  # rounds whose union overflowed the capacity and ran the dense plane
+    "skips",  # empty-union rounds that entered no row exchange
+)
+
+# collective kinds in their snapshot order (the JAX package's names)
+KINDS = ("psum", "pmean", "pmin", "pmax", "all_gather", "coalesced_gather", "ppermute", "all_to_all",
+         "process_allgather")
+
 
 class CollectiveCounters:
     """Process-wide counters; ``enabled`` is the gate of the gauges."""
 
-    __slots__ = ("enabled", "slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters",
+    __slots__ = ("enabled", "calls_by_kind", "bytes_by_kind_dtype", "calls_by_crossing", "bytes_by_crossing",
+                 "states_synced", "slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters",
                  "wm_stragglers", "wm_exchange_calls", "watermark_agreement", "faults", "gather_skips",
-                 "deferred", "deferred_depth", "_lock")
+                 "deferred", "deferred_depth", "sparse", "_lock")
 
     def __init__(self) -> None:
         self.enabled = False
@@ -105,6 +144,11 @@ class CollectiveCounters:
         self._zero()
 
     def _zero(self) -> None:
+        self.calls_by_kind: Dict[str, int] = {}
+        self.bytes_by_kind_dtype: Dict[tuple, int] = {}  # (kind, dtype name) -> payload bytes
+        self.calls_by_crossing: Dict[str, int] = {}  # "ici" | "dcn" | "world" -> calls
+        self.bytes_by_crossing: Dict[str, int] = {}  # crossing -> ring traffic bytes
+        self.states_synced = 0
         self.slab_dropped_samples = 0
         self.evicted_mass_dropped = 0
         self.slab_slots: Dict[str, Dict[str, int]] = {}
@@ -116,6 +160,42 @@ class CollectiveCounters:
         self.gather_skips = 0
         self.deferred: Dict[str, int] = {k: 0 for k in DEFERRED_KINDS}
         self.deferred_depth: Dict[str, Dict[str, int]] = {}
+        self.sparse: Dict[str, int] = {k: 0 for k in SPARSE_KINDS}
+
+    def record_collective(self, kind: str, value: Any, crossing: str = "world", fanout: Optional[int] = None) -> None:
+        """Count one collective of ``kind`` whose local payload is ``value`` (a
+        tensor, or a list of tensors moved by one call: dtype ``packed``);
+        ``fanout`` ranks take part, so it moves ``payload * (fanout - 1)``
+        bytes over ``crossing``."""
+        parts = value if isinstance(value, (list, tuple)) else [value]
+        nbytes = sum(int(v.numel()) * int(v.element_size()) for v in parts)
+        dtype = "packed" if isinstance(value, (list, tuple)) else str(value.dtype).replace("torch.", "")
+        traffic = nbytes * max(int(fanout) - 1, 1) if fanout else nbytes
+        with self._lock:
+            self.calls_by_kind[kind] = self.calls_by_kind.get(kind, 0) + 1
+            self.bytes_by_kind_dtype[(kind, dtype)] = self.bytes_by_kind_dtype.get((kind, dtype), 0) + nbytes
+            self.calls_by_crossing[crossing] = self.calls_by_crossing.get(crossing, 0) + 1
+            self.bytes_by_crossing[crossing] = self.bytes_by_crossing.get(crossing, 0) + traffic
+
+    def record_states_synced(self, n: int) -> None:
+        with self._lock:
+            self.states_synced += int(n)
+
+    def record_sparse_round(self, rows: int) -> None:
+        """Count one sparse round and the union rows it exchanged (0 on a skip)."""
+        if rows < 0:
+            raise ValueError(f"sparse union row count must be >= 0, got {rows}")
+        with self._lock:
+            self.sparse["syncs"] += 1
+            self.sparse["rows"] += int(rows)
+
+    def record_sparse_fallback(self) -> None:
+        with self._lock:
+            self.sparse["fallbacks"] += 1
+
+    def record_sparse_skip(self) -> None:
+        with self._lock:
+            self.sparse["skips"] += 1
 
     def record_fault(self, kind: str, n: int = 1) -> None:
         """``kind`` must be in :data:`FAULT_KINDS` (a typo'd fault kind fails loudly)."""
@@ -202,7 +282,17 @@ class CollectiveCounters:
     def snapshot(self) -> Dict[str, Any]:
         """A JSON-ready copy of every counter."""
         with self._lock:
+            calls = dict(self.calls_by_kind)
+            by_bucket = dict(self.bytes_by_kind_dtype)
             return {
+                "collective_calls": sum(calls.values()),
+                "sync_bytes": sum(by_bucket.values()),
+                "calls_by_kind": {k: calls[k] for k in KINDS if calls.get(k, 0)},
+                "bytes_by_kind_dtype": {f"{k}:{d}": b for (k, d), b in sorted(by_bucket.items())},
+                "calls_by_crossing": dict(sorted(self.calls_by_crossing.items())),
+                "bytes_by_crossing": dict(sorted(self.bytes_by_crossing.items())),
+                "states_synced": self.states_synced,
+                "sparse": dict(self.sparse),
                 "slab_dropped_samples": self.slab_dropped_samples,
                 "evicted_mass_dropped": self.evicted_mass_dropped,
                 "wm_stragglers": self.wm_stragglers,
@@ -247,6 +337,31 @@ def record_fault(kind: str, n: int = 1) -> None:
 
 def record_gather_skip() -> None:
     COUNTERS.record_gather_skip()
+
+
+# the sparse round ledger too: a fallback is evidence the capacity estimate
+# broke, and a round is one host round trip, never a hot inner loop
+def record_sparse_round(rows: int) -> None:
+    COUNTERS.record_sparse_round(rows)
+
+
+def record_sparse_fallback() -> None:
+    COUNTERS.record_sparse_fallback()
+
+
+def record_sparse_skip() -> None:
+    COUNTERS.record_sparse_skip()
+
+
+# collectives are telemetry: one call and a falsy check when counting is off
+def record_collective(kind: str, value: Any, crossing: str = "world", fanout: Optional[int] = None) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_collective(kind, value, crossing=crossing, fanout=fanout)
+
+
+def record_states_synced(n: int) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_states_synced(n)
 
 
 # the gauges are telemetry and share the enabled gate

@@ -13,7 +13,7 @@ same device. Appends and merges write rows on the device with no host read:
 :func:`set_overflow_policy` sets the process-wide default; ``buffer_values``
 and the host sync plane take a per-call override.
 """
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import Tensor
@@ -35,6 +35,11 @@ def set_overflow_policy(policy: str) -> str:
     old = _OVERFLOW_POLICY
     _OVERFLOW_POLICY = policy
     return old
+
+
+def overflow_policy() -> str:
+    """The process-wide PaddedBuffer overflow policy."""
+    return _OVERFLOW_POLICY
 
 
 def handle_overflow(name: str, count: int, capacity: int, policy: Optional[str] = None) -> None:
@@ -115,6 +120,25 @@ def buffer_compact_gathered(data: Tensor, counts: Tensor, capacity: Optional[int
     out = data.new_zeros((world * cap, *data.shape[2:]))
     out = scatter_rows_drop(out, dest.reshape(-1), data.reshape(world * rows, *data.shape[2:]))
     return PaddedBuffer(data=out, count=torch.sum(counts))
+
+
+def buffer_all_gather(buf: PaddedBuffer, group: Optional[Any] = None) -> PaddedBuffer:
+    """Gather every rank's buffer over ``group`` into one compacted buffer of
+    capacity ``W * capacity``: every rank's valid rows at the front, in rank
+    order, ``count`` the unclamped sum. Two ``all_gather`` calls (the data,
+    the counts); with a :class:`~metrics_tpu_torch.parallel.placement.
+    MeshHierarchy` as ``group``, each in two stages (across slices, then
+    within the slice), in the same rank order. Outside a process group the
+    world is this process."""
+    from metrics_tpu_torch.parallel.sync import _gather_call, _resolve_hierarchy, _unguarded_plane, dist_active
+
+    if not dist_active():
+        return buffer_compact_gathered(buf.data.unsqueeze(0), buf.count.reshape(1))
+    topo = _resolve_hierarchy(group)
+    plane = _unguarded_plane("buffer_all_gather")  # unguarded, as the JAX package's in-jit gather
+    data = _gather_call(plane, topo, buf.data.contiguous())
+    counts = _gather_call(plane, topo, buf.count.reshape(1))
+    return buffer_compact_gathered(torch.stack(data), torch.cat(counts))
 
 
 def buffer_values(buf: PaddedBuffer, overflow: Optional[str] = None, name: str = "<buffer>") -> Tensor:

@@ -35,7 +35,14 @@ The ``deferred`` counters record dispatches, fences and completions. The
 ``deferred.dispatch`` / ``.fence`` / ``.complete`` spans of the JAX package
 wait for the port's tracing plane. Its compiled-program cache
 (``clear_program_cache``, ``_sync_program``) has no counterpart: the port
-compiles nothing. ``deferred_sparse_sync`` waits for ``parallel/sparse.py``.
+compiles nothing.
+- **Deferred sparse rounds run on the worker.** A sparse round reads its union
+  on the host between its two collectives, so :func:`deferred_sparse_sync`
+  runs the whole round on the host plane's worker, as the JAX package does.
+  Its collectives then come from another thread than the caller's, so the
+  plane runs them on process groups of its own over the same ranks (made on
+  every rank at its first deferred round), and a synchronous round of the
+  plane first waits for its deferred ones.
 """
 import atexit
 import threading
@@ -66,6 +73,7 @@ __all__ = [
     "MAX_SYNC_LAG",
     "SyncHandle",
     "deferred_host_gather",
+    "deferred_sparse_sync",
     "deferred_sync_state",
     "drain_host_plane",
     "host_plane_submit",
@@ -407,3 +415,38 @@ def deferred_sync_state(
                                   deferred=True)
     record_deferred("dispatched")
     return SyncHandle("device", pending, finish=finish, watermark=watermark, label="sync_state")
+
+
+def deferred_sparse_sync(
+    plane: Any,
+    state: Dict[str, Any],
+    touched: Any = None,
+    watermark: Optional[int] = None,
+    label: str = "sparse_sync",
+) -> SyncHandle:
+    """Run one sparse round in the background; returns a ``"host"``
+    :class:`SyncHandle`.
+
+    ``plane`` is a :class:`~metrics_tpu_torch.parallel.sparse.SparseSyncPlane`;
+    the task is its round verbatim (the bitmap ``all_reduce``, the union read,
+    the row exchange or the dense fallback, guard retries, chaos at site
+    ``"sparse_sync"``, the round ledger) on the single-worker host plane, over
+    the plane's own process groups (see the module docstring). ``state`` is
+    copied now (the port's states are written in place), so the caller keeps
+    accumulating; the ``touched`` hint too. The JAX package's ``attrs`` (span
+    attributes) wait for the port's tracing plane.
+    """
+    topo = plane._twin_topology()
+    snapshot = snapshot_state(state)
+    hint = None if touched is None else torch.as_tensor(touched).clone()
+
+    def task() -> Any:
+        with plane._lock:
+            out = plane._sync_locked(snapshot, hint, topo)
+        record_deferred("completed")
+        return out
+
+    future = _HOST_PLANE.submit(task)
+    plane._inflight = [f for f in plane._inflight if not f.done()] + [future]
+    record_deferred("dispatched")
+    return SyncHandle("host", future, watermark=watermark, label=label)

@@ -37,6 +37,20 @@ in program order: a torch process group does not order collectives that two
 threads issue, so the guard waits on ``async_op=True`` works with its
 deadline instead of running attempts on threads, and the deferred plane
 (``parallel/deferred.py``) enters its collectives at dispatch the same way.
+
+Both forms are topology-aware. Pass a
+:class:`~metrics_tpu_torch.parallel.placement.MeshHierarchy` as ``group=`` (or
+as ``hierarchy=``) and every collective of :func:`all_reduce_state` runs in
+two stages: a reduce bucket over the caller's slice (``ici``) first, then the
+slice's result across slices (``dcn``); a gather across slices first, with the
+unexpanded payload, then within the slice, the result put back into rank
+order. A sum crosses the slow link once a slice, not once a rank.
+``hierarchy=False`` forces the flat plane over the hierarchy's world; a
+one-slice hierarchy is the flat plane over ``ici``, with the same
+collectives. The host plane's counterpart is :func:`slice_leader_gather`:
+one copy a slice of a state replicated within its slice. Every collective
+records itself in ``observability.counters`` (kind, payload, crossing and
+ring traffic) where it is entered.
 """
 import functools
 import time
@@ -46,8 +60,14 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-from metrics_tpu_torch.observability.counters import record_fault, record_gather_skip
+from metrics_tpu_torch.observability.counters import (
+    record_collective,
+    record_fault,
+    record_gather_skip,
+    record_states_synced,
+)
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_compact_gathered, buffer_merge, handle_overflow
+from metrics_tpu_torch.parallel.placement import HostHierarchy, MeshHierarchy
 from metrics_tpu_torch.parallel.sketch import is_sketch, sketch_merge
 from metrics_tpu_torch.utils.data import dim_zero_cat, dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum
 from metrics_tpu_torch.utils.exceptions import InjectedFaultError, StateCorruptionError, SyncTimeoutError
@@ -190,8 +210,6 @@ def _local_unit(value: Any, layout: Optional[tuple]) -> Tuple[Optional[Tensor], 
 def _tensor_of(value: Any) -> Tensor:
     """The tensor a reduce state syncs: a sketch's counts, or the state itself."""
     return value.counts if is_sketch(value) else value
-
-
 
 
 def snapshot_state(state: Dict[Any, Any]) -> Dict[Any, Any]:
@@ -470,27 +488,133 @@ class _GuardPlane:
                 ) from err
 
 
-def _issue_all_reduce(flat: Tensor, op: Any, group: Optional[Any], copy: bool) -> Callable[[bool], Any]:
+def _unguarded_plane(site: str = "host_gather") -> _GuardPlane:
+    """A plane with no guard and no fault hook: the unwrapped fast path, for
+    collectives that a caller guards as a whole (the sparse round)."""
+    plane = _GuardPlane(SyncGuard(), site=site)
+    plane.hook = None
+    return plane
+
+
+_DIST_OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
+_KIND_OF_OP = {"sum": "psum", "min": "pmin", "max": "pmax"}  # the JAX package's counter kinds
+
+
+def _issue_all_reduce(flat: Tensor, op: str, group: Optional[Any], copy: bool,
+                      crossing: str = "world") -> Callable[[bool], Any]:
+    """Enter an ``all_reduce`` of ``flat`` by ``op`` (``"sum"`` / ``"min"`` /
+    ``"max"``) over ``group``, counted at ``crossing``."""
+    fanout = dist.get_world_size(group)
+
     def issue(async_op: bool) -> Any:
         buf = flat.clone() if copy else flat  # a retry reduces the local payload again
-        work = dist.all_reduce(buf, op=op, group=group, async_op=async_op)
+        record_collective(_KIND_OF_OP[op], buf, crossing=crossing, fanout=fanout)
+        work = dist.all_reduce(buf, op=getattr(dist.ReduceOp, _DIST_OPS[op]), group=group, async_op=async_op)
         return _Issued(work, lambda: [buf]) if async_op else _Ready([buf])
 
     return issue
 
 
-def _issue_all_gather(value: Tensor, world: int, group: Optional[Any]) -> Callable[[bool], Any]:
+def _issue_all_gather(value: Tensor, world: int, group: Optional[Any], crossing: str = "world") -> Callable[[bool], Any]:
     def issue(async_op: bool) -> Any:
         outs = [torch.empty_like(value) for _ in range(world)]
+        record_collective("all_gather", value, crossing=crossing, fanout=world)
         work = dist.all_gather(outs, value, group=group, async_op=async_op)
         return _Issued(work, lambda: outs) if async_op else _Ready(outs)
 
     return issue
 
 
+# ---------------------------------------------------------- the two-level plane
+class _Topology(NamedTuple):
+    """Where one sync's collectives run: over ``group`` (flat, counted at
+    ``crossing``), or in two stages over ``hierarchy``."""
+
+    group: Optional[Any]
+    hierarchy: Optional[MeshHierarchy]
+    crossing: str
+
+    @property
+    def world(self) -> int:
+        return self.hierarchy.size if self.hierarchy is not None else dist.get_world_size(self.group)
+
+
+def _resolve_hierarchy(group: Any, hierarchy: Union[MeshHierarchy, bool, None] = None) -> _Topology:
+    """The topology of a sync, with the degenerate cases folded.
+
+    A :class:`MeshHierarchy` passed as ``group`` is taken as the hierarchy;
+    ``hierarchy=False`` forces the flat plane over the hierarchy's world (one
+    collective a bucket, counted at ``world``); a one-slice hierarchy is the
+    flat plane over its ``ici`` group, with the same collectives, counted at
+    ``ici``."""
+    if hierarchy is False:
+        return _Topology(group.world if isinstance(group, MeshHierarchy) else group, None, "world")
+    if hierarchy is None and isinstance(group, MeshHierarchy):
+        hierarchy = group
+    if hierarchy is None:
+        return _Topology(group, None, "world")
+    if hierarchy.slices == 1:
+        return _Topology(hierarchy.ici, None, "ici")
+    return _Topology(hierarchy.world, hierarchy, "world")
+
+
+def _reduce_call(plane: "_GuardPlane", topo: _Topology, flat: Tensor, op: str, resolve: bool) -> "_Call":
+    """Enter the reduction of one bucket. Two-level: over ``ici``, waited on,
+    then the slice's result over ``dcn`` (the call returned). Each stage is one
+    guarded call."""
+    h = topo.hierarchy
+    if h is None:
+        return plane.call(flat, _issue_all_reduce(flat, op, topo.group, plane.active, topo.crossing), resolve=resolve)
+    local = plane.call(flat, _issue_all_reduce(flat, op, h.ici, plane.active, "ici")).result[0]
+    return plane.call(local, _issue_all_reduce(local, op, h.dcn, plane.active, "dcn"), resolve=resolve)
+
+
+def _settled(plane: "_GuardPlane", call: "_Call", wait_degraded: bool) -> Optional[List[Tensor]]:
+    """A gather call's per-rank tensors; on a degraded plane the entered work is
+    waited on without a deadline when ``wait_degraded``, else ``None``."""
+    if not plane.degraded:
+        return call.result
+    if wait_degraded and call.pending is not None:
+        return call.pending.wait(None)
+    return None
+
+
+def _gather_call(plane: "_GuardPlane", topo: _Topology, value: Tensor,
+                 wait_degraded: bool = False) -> Optional[List[Tensor]]:
+    """``value`` of every rank of ``topo``, in rank order (``None``: the plane
+    degraded and the result is not needed).
+
+    Two-level: each rank exchanges its own payload with its position's peers
+    across slices (``dcn``), then the ``(slices, ...)`` stack within its slice
+    (``ici``); the slice-major blocks go back to rank order by the hierarchy's
+    grid. A degraded rank still enters the second stage with its peers'
+    shape, and not at all when no attempt entered the first."""
+    h = topo.hierarchy
+    if h is None:
+        world = dist.get_world_size(topo.group)
+        call = plane.call(value, _issue_all_gather(value, world, topo.group, topo.crossing))
+        return _settled(plane, call, wait_degraded)
+    first = plane.call(value, _issue_all_gather(value, h.slices, h.dcn, "dcn"))
+    across = _settled(plane, first, wait_degraded)
+    if across is None:
+        if first.pending is not None:
+            stack = value.unsqueeze(0).expand(h.slices, *value.shape).contiguous()
+            plane.call(stack, _issue_all_gather(stack, h.per_slice, h.ici, "ici"))
+        return None
+    stack = torch.stack(across)
+    blocks = _settled(plane, plane.call(stack, _issue_all_gather(stack, h.per_slice, h.ici, "ici")), wait_degraded)
+    if blocks is None:
+        return None
+    out: List[Optional[Tensor]] = [None] * h.size
+    for p, block in enumerate(blocks):
+        for s in range(h.slices):
+            out[h.grid[s][p]] = block[s]
+    return out  # type: ignore[return-value]
+
+
 # ------------------------------------------------------------ the gather plane
 def _gather_states(
-    state: Dict[str, Any], names: List[str], layouts: Dict[str, tuple], device: torch.device, group: Optional[Any],
+    state: Dict[str, Any], names: List[str], layouts: Dict[str, tuple], device: torch.device, topo: _Topology,
     plane: _GuardPlane,
 ) -> Dict[str, Any]:
     """Gather the named states across ranks: one layout all_gather, then one
@@ -502,7 +626,7 @@ def _gather_states(
     dropped by a fault schedule that every rank shares) enters no padded
     gather either. A degraded plane's result is not assembled: the caller
     takes the local view."""
-    world = dist.get_world_size(group)
+    world = topo.world
     units, rows = [], []
     for name in names:
         data, row = _local_unit(state[name], layouts.get(name))
@@ -512,13 +636,9 @@ def _gather_states(
     for u, name in enumerate(names):
         if isinstance(state[name], PaddedBuffer):  # the count stays on the device: no host read
             table[u, 3] = state[name].count
-    call = plane.call(table, _issue_all_gather(table, world, group))
-    if not plane.degraded:
-        gathered_tables = call.result
-    elif call.pending is not None:
-        gathered_tables = call.pending.wait(None)
-    else:
-        return {}
+    gathered_tables = _gather_call(plane, topo, table, wait_degraded=True)
+    if gathered_tables is None:
+        return {}  # no attempt entered the table: no rank enters a padded gather
     per_rank = torch.stack(gathered_tables).tolist()  # (world, units, width): ONE host read
 
     # agree on each state's layout: the first rank that knows it
@@ -556,8 +676,8 @@ def _gather_states(
                 data = torch.cat([data, data.new_zeros((lay.pad_rows - data.shape[0], *lay.item))])
             pieces.append(data.reshape(-1))
         flat = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
-        gathered = plane.call(flat, _issue_all_gather(flat, world, group)).result
-        if plane.degraded:
+        gathered = _gather_call(plane, topo, flat)
+        if gathered is None:
             continue  # the caller takes the local view
         offset = 0
         for u in members:
@@ -573,9 +693,6 @@ def _gather_states(
     return out
 
 
-_DIST_OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
-
-
 class StateSync:
     """One state sync of the bucketed plane, entered on the caller's thread.
 
@@ -586,9 +703,10 @@ class StateSync:
     assembles the synced state dict; :meth:`done` says whether it would wait.
     """
 
-    def __init__(self, state: Dict[str, Any], reductions: Dict[str, ReduceFx], group: Optional[Any],
+    def __init__(self, state: Dict[str, Any], reductions: Dict[str, ReduceFx], topo: _Topology,
                  layouts: Dict[str, tuple], device: Optional[torch.device], plane: _GuardPlane, deferred: bool):
-        self.state, self.reductions, self.group, self.layouts, self.plane = state, reductions, group, layouts, plane
+        self.state, self.reductions, self.topo, self.layouts, self.plane = state, reductions, topo, layouts, plane
+        record_states_synced(len(state))
         buckets: Dict[tuple, List[str]] = {}
         self.gather_names: List[str] = []
         for name, value in state.items():
@@ -606,15 +724,14 @@ class StateSync:
         self.calls = []
         for (_dtype, op), names in buckets.items():
             flat = torch.cat([_tensor_of(state[n]).reshape(-1) for n in names])
-            issue = _issue_all_reduce(flat, getattr(dist.ReduceOp, _DIST_OPS[op]), group, plane.active)
-            self.calls.append((names, plane.call(flat, issue, resolve=not deferred)))
+            self.calls.append((names, _reduce_call(plane, topo, flat, op, resolve=not deferred)))
         # a degraded sync returns the local state as it was at dispatch: the
         # buckets' payloads are copies already; a deferred sync, which the
         # caller may update in place before it finishes, copies its gather states
         self.local = state
         if deferred and plane.active and self.gather_names:
             self.local = dict(state, **snapshot_state({n: state[n] for n in self.gather_names}))
-        self.gathered = (_gather_states(state, self.gather_names, layouts, device, group, plane)
+        self.gathered = (_gather_states(state, self.gather_names, layouts, device, topo, plane)
                          if self.gather_names else {})
         self._out: Optional[Dict[str, Any]] = None
 
@@ -632,7 +749,7 @@ class StateSync:
                                   [(names, call.value) for names, call in self.calls],
                                   _local_gathered(self.local, self.gather_names, self.layouts), world=1)
         else:
-            world = dist.get_world_size(self.group) if any(self.reductions[n] == "mean" for n in self.state) else 1
+            world = self.topo.world if any(self.reductions[n] == "mean" for n in self.state) else 1
             self._out = _assemble(self.state, self.reductions, self.gather_names, results, self.gathered, world)
         return self._out
 
@@ -689,11 +806,14 @@ def dispatch_state_sync(
     guard: Optional[SyncGuard] = None,
     deferred: bool = False,
     reissue: bool = True,
+    hierarchy: Union[MeshHierarchy, bool, None] = None,
 ) -> StateSync:
     """Enter a state sync's collectives on this thread; see :class:`StateSync`.
     ``reissue=False`` when :meth:`StateSync.finish` runs on another thread
-    (see ``_GuardPlane``)."""
-    return StateSync(state, reductions, group, layouts or {}, device, _GuardPlane(guard, reissue=reissue), deferred)
+    (see ``_GuardPlane``). ``group`` / ``hierarchy``: see
+    :func:`all_reduce_state`."""
+    return StateSync(state, reductions, _resolve_hierarchy(group, hierarchy), layouts or {}, device,
+                     _GuardPlane(guard, reissue=reissue), deferred)
 
 
 def all_reduce_state(
@@ -704,6 +824,7 @@ def all_reduce_state(
     device: Optional[torch.device] = None,
     guard: Optional[SyncGuard] = None,
     timer: Optional[Callable[[float], None]] = None,
+    hierarchy: Union[MeshHierarchy, bool, None] = None,
 ) -> Dict[str, Any]:
     """Sync a state dict across the ranks of ``group``.
 
@@ -718,13 +839,20 @@ def all_reduce_state(
     where an empty rank builds its part. Returns a new dict; the input
     tensors are not modified.
 
+    ``group`` may be a :class:`~metrics_tpu_torch.parallel.placement.
+    MeshHierarchy` (or pass one as ``hierarchy=``): every collective then runs
+    in two stages, sums over the slice first and gathers across slices first
+    (see the module docstring), with the flat plane's values: integer buckets
+    bit for bit, float sums rounded in another order. ``hierarchy=False``
+    forces the flat plane.
+
     Every collective call runs under ``guard`` (default: the process-wide
-    :func:`set_sync_guard` guard; see :class:`SyncGuard`). ``timer`` receives
-    the milliseconds the call held this thread (the adaptive lag
-    controller's lag-0 probe).
+    :func:`set_sync_guard` guard; see :class:`SyncGuard`); each stage of a
+    two-level collective is one call. ``timer`` receives the milliseconds the
+    call held this thread (the adaptive lag controller's lag-0 probe).
     """
     t0 = time.perf_counter() if timer is not None else 0.0
-    out = dispatch_state_sync(state, reductions, group, layouts, device, guard).finish()
+    out = dispatch_state_sync(state, reductions, group, layouts, device, guard, hierarchy=hierarchy).finish()
     if timer is not None:
         timer((time.perf_counter() - t0) * 1e3)
     return out
@@ -746,6 +874,48 @@ def is_packable_gather(fn: Callable) -> bool:
     if isinstance(fn, functools.partial):
         return is_packable_gather(fn.func)
     return False
+
+
+def slice_leader_gather(hierarchy: HostHierarchy) -> Callable:
+    """A packable host gather that keeps one copy a slice.
+
+    For states replicated within a slice (after a sync over the slice, or a
+    replicated eval state), the flat gather returns every rank's identical
+    copy. This one returns the slice leaders' copies, in slice order, so the
+    reduction spans each slice once, and counts the exchange at the ``dcn``
+    crossing with slice fanout. Every process enters the one world
+    ``all_gather`` and keeps the leaders' rows, so every process of a slice
+    sees the same result. The caller owns the invariant: states that differ
+    within a slice take the flat plane."""
+    if not isinstance(hierarchy, HostHierarchy):
+        raise TypeError(f"slice_leader_gather needs a HostHierarchy (process -> slice map), got {hierarchy!r}")
+
+    @packable_gather
+    def leader_gather(value: Tensor) -> List[Tensor]:
+        if not dist_active() or dist.get_world_size() == 1 or hierarchy.n_slices <= 1:
+            return [value]  # one slice: the flat gather of one copy
+        record_collective("process_allgather", value, crossing="dcn", fanout=hierarchy.n_slices)
+        outs = _all_gather_world(value)
+        return [outs[p] for p in hierarchy.leaders]
+
+    return leader_gather
+
+
+def _all_gather_world(value: Tensor) -> List[Tensor]:
+    value = value.contiguous()
+    outs = [torch.empty_like(value) for _ in range(dist.get_world_size())]
+    dist.all_gather(outs, value)
+    return outs
+
+
+@packable_gather
+def _world_gather(value: Tensor) -> List[Tensor]:
+    """The host plane's default gather: every rank's tensor over the default
+    world (the value itself outside a process group)."""
+    if not dist_active():
+        return [value]
+    record_collective("process_allgather", value, crossing="world", fanout=dist.get_world_size())
+    return _all_gather_world(value)
 
 
 def _packed_gather_units(units: List[Tensor], gather: Callable[[Tensor], List[Tensor]]) -> List[List[Tensor]]:
@@ -772,7 +942,8 @@ def _packed_gather_units(units: List[Tensor], gather: Callable[[Tensor], List[Te
 def host_gather(
     state: Dict[str, Any],
     reductions: Dict[str, ReduceFx],
-    gather_fn: Callable[[Tensor], List[Tensor]],
+    gather_fn: Optional[Callable[[Tensor], List[Tensor]]] = None,
+    slice_leaders: Optional[HostHierarchy] = None,
     guard: Optional[SyncGuard] = None,
     timer: Optional[Callable[[float], None]] = None,
     reissue: bool = True,
@@ -783,6 +954,10 @@ def host_gather(
     PaddedBuffer gathers its data and count and comes back as the dense
     concatenation of every rank's valid rows; each rank's count goes through
     the overflow policy. A :func:`packable_gather` makes one call per dtype.
+    Without a ``gather_fn`` the gather is ``torch.distributed.all_gather``
+    over the default world, or with ``slice_leaders`` (a
+    :class:`~metrics_tpu_torch.parallel.placement.HostHierarchy`)
+    :func:`slice_leader_gather`: one copy a slice.
 
     ``None`` states pass through; a state with nothing to move enters no
     gather (``gather_skips``). Every call runs under ``guard`` (see
@@ -791,6 +966,8 @@ def host_gather(
     alone. ``timer`` receives the milliseconds the gather calls held this
     thread; ``reissue=False`` is the host-plane worker's form (see
     ``_GuardPlane``)."""
+    if gather_fn is None:
+        gather_fn = slice_leader_gather(slice_leaders) if slice_leaders is not None else _world_gather
     units: List[Tensor] = []
     slots: Dict[str, tuple] = {}
     for name, value in state.items():

@@ -9,12 +9,15 @@ per-sample deltas of the keyed wrappers) the value checks are skipped, as the
 JAX package skips them on arrays that are not concrete. Inside a
 :func:`shared_input_format` window (opened by ``MetricCollection`` around one
 step) the formatted result is memoized, so a collection formats and
-validates each batch once across all its compute groups.
+validates each batch once across all its compute groups. Inside a
+:func:`deferred_value_checks` window the value checks are postponed to the
+window's end: their flags go into flight as non-blocking copies and one wait
+reads them all.
 """
 import math
 import threading
 from contextlib import contextmanager
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -135,10 +138,70 @@ def _validate_values(
         if not preds_float:
             checks.append((p_max >= num_classes, "The highest label in `preds` should be smaller than `num_classes`."))
 
-    flags = torch.stack([c for c, _ in checks]).tolist()  # ONE readback
-    for flag, (_, message) in zip(flags, checks):
-        if flag:
-            raise ValueError(message)
+    read = flags_when_checked(torch.stack([c for c, _ in checks]))  # ONE readback
+
+    def finalize() -> None:
+        for flag, (_, message) in zip(read(), checks):
+            if flag:
+                raise ValueError(message)
+
+    defer_or_run_value_check(finalize)
+
+
+# ------------------------------------------------- deferred value-check window
+# A value check needs a device-to-host read before it can raise. Inside a
+# ``deferred_value_checks()`` window the raise is postponed: the finalizers are
+# collected, their flags copied to the host without waiting, and one wait at
+# the window's end covers every copy (and the work enqueued before it). Checks
+# still raise in their order, and only when the window exits cleanly: an
+# exception inside it skips the pending checks, as in the JAX package.
+# Thread-local: concurrent threads do not share windows.
+_DEFERRED_CHECKS = threading.local()
+
+
+class _Window:
+    __slots__ = ("pending", "devices")
+
+    def __init__(self) -> None:
+        self.pending: List[Callable[[], None]] = []
+        self.devices: set = set()  # CUDA devices with flag copies in flight
+
+
+@contextmanager
+def deferred_value_checks():
+    """Open a window that postpones value checks to its end (see above)."""
+    prev = getattr(_DEFERRED_CHECKS, "window", None)
+    _DEFERRED_CHECKS.window = window = _Window()
+    try:
+        yield
+    finally:
+        _DEFERRED_CHECKS.window = prev
+    for device in window.devices:  # the window's one wait for its copies
+        torch.cuda.current_stream(device).synchronize()
+    for finalize in window.pending:  # raises propagate only on a clean exit
+        finalize()
+
+
+def defer_or_run_value_check(finalize: Callable[[], None]) -> None:
+    """Run ``finalize`` now, or at the end of the open window."""
+    window = getattr(_DEFERRED_CHECKS, "window", None)
+    if window is None:
+        finalize()
+    else:
+        window.pending.append(finalize)
+
+
+def flags_when_checked(flags: Tensor) -> Callable[[], list]:
+    """A reader of ``flags`` as host values for a check's finalizer. In an open
+    window a CUDA tensor is copied to pinned host memory now, without waiting,
+    and the window's end waits for it; otherwise the reader reads it then."""
+    window = getattr(_DEFERRED_CHECKS, "window", None)
+    if window is None or not flags.is_cuda:
+        return flags.tolist
+    host = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
+    host.copy_(flags, non_blocking=True)
+    window.devices.add(flags.device)
+    return host.tolist
 
 
 # ---------------------------------------------- shared canonicalization memo

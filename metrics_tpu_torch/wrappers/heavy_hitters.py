@@ -564,6 +564,22 @@ class HeavyHitters(Metric):
         return float(cms_error_bound(getattr(self, _TAIL_ROWS_STATE).counts))
 
     # ------------------------------------------------------------- lifecycle
+    # ---------------------------------------------------- sparse delta sync
+    def sparse_plane(self, group: Any = None, *, capacity: int = 64, **kwargs: Any) -> Any:
+        """A :class:`~metrics_tpu_torch.parallel.sparse.SparseSyncPlane` over
+        the two-tier state: the hot ``(K, *item)`` slabs and ``hh_rows`` ride
+        the row exchange; the count-min tails (``*_tail``, ``hh_tail_rows``)
+        are dense residuals whose int64 deltas ride the bitmap collective, so a
+        round moves the touched hot rows plus the fixed tail, with no extra
+        collective. Every state is sum-reduced, so the split is delta-exact.
+        Build the plane while the metric is reset."""
+        from metrics_tpu_torch.parallel.sparse import SparseSyncPlane
+
+        state = self._current_state()
+        rows = tuple(n for n in state if not (n.endswith(_TAIL_SUFFIX) or n == _TAIL_ROWS_STATE))
+        return SparseSyncPlane(state, dict(self._reductions), self.num_hot_slots, group, capacity=capacity,
+                               row_leaves=rows, **kwargs)
+
     def reset(self) -> None:
         super().reset()
         self._table.reset()

@@ -571,6 +571,21 @@ class Keyed(Metric):
         return with_slot
 
     # ------------------------------------------------------------- lifecycle
+    # ---------------------------------------------------- sparse delta sync
+    def sparse_plane(self, group: Any = None, *, capacity: int = 64, **kwargs: Any) -> Any:
+        """A :class:`~metrics_tpu_torch.parallel.sparse.SparseSyncPlane` over
+        this wrapper's slab state: a cross-rank sync whose collective bytes
+        follow the rows a round touched, not K. Every leaf is a ``(K, *item)``
+        slab (the rows slab too), so all of them ride the row exchange; the
+        merged view a round returns is a state for ``compute_from_state``.
+        Build the plane while the metric is reset, and pass
+        :func:`~metrics_tpu_torch.parallel.slab.slab_touched_mask` over a
+        step's slot ids as ``touched=`` to skip the full-slab compare."""
+        from metrics_tpu_torch.parallel.sparse import SparseSyncPlane
+
+        return SparseSyncPlane(self._current_state(), dict(self._reductions), self.num_slots, group,
+                               capacity=capacity, **kwargs)
+
     def reset(self) -> None:
         super().reset()
         if self._slots is not None:

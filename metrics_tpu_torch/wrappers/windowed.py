@@ -683,6 +683,20 @@ class Windowed(Metric):
         return _tree_map(mask, result)
 
     # ------------------------------------------------------------- lifecycle
+    # ---------------------------------------------------- sparse delta sync
+    def sparse_plane(self, group: Any = None, *, capacity: Optional[int] = None, **kwargs: Any) -> Any:
+        """A :class:`~metrics_tpu_torch.parallel.sparse.SparseSyncPlane` over
+        the window ring: every leaf is a ``(num_windows, ...)`` slab, so a round
+        exchanges the windows a step wrote (the head window, and a late
+        event's neighbour), not the whole ring. The capacity defaults to the
+        ring (``num_windows``): it never overflows. Ring mode is integer-exact;
+        decay mode's float rows add their deltas exactly while the effective
+        counts are integer-valued. Build the plane while the metric is reset."""
+        from metrics_tpu_torch.parallel.sparse import SparseSyncPlane
+
+        return SparseSyncPlane(self._current_state(), dict(self._reductions), self.num_windows, group,
+                               capacity=self.num_windows if capacity is None else capacity, **kwargs)
+
     def reset(self) -> None:
         super().reset()
         self._watermark = None

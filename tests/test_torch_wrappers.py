@@ -625,8 +625,9 @@ def test_counters_slab_keys_equal_jax_after_the_same_stream():
         assert got["slab_dropped_samples"] == 4 * 5 and got["evicted_mass_dropped"] > 0
         assert set(got) == {"slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters",
                             "wm_stragglers", "wm_exchange_calls", "watermark_agreement", "faults", "gather_skips",
-                            "deferred", "deferred_depth"}
-        for key in ("faults", "gather_skips", "deferred", "deferred_depth"):
+                            "deferred", "deferred_depth", "collective_calls", "sync_bytes", "calls_by_kind",
+                            "bytes_by_kind_dtype", "calls_by_crossing", "bytes_by_crossing", "states_synced", "sparse"}
+        for key in ("faults", "gather_skips", "deferred", "deferred_depth", "sparse"):
             assert got[key] == want[key], key
         pcounters.disable()
         keyed.update(*_args(b, ("probs", "classes")), slot=torch.from_numpy(b["slots"]))
@@ -635,7 +636,10 @@ def test_counters_slab_keys_equal_jax_after_the_same_stream():
                                         "heavy_hitters": {}, "wm_stragglers": 0, "wm_exchange_calls": 0,
                                         "watermark_agreement": {}, "faults": dict.fromkeys(pcounters.FAULT_KINDS, 0),
                                         "gather_skips": 0, "deferred": dict.fromkeys(pcounters.DEFERRED_KINDS, 0),
-                                        "deferred_depth": {}}
+                                        "deferred_depth": {}, "collective_calls": 0, "sync_bytes": 0,
+                                        "calls_by_kind": {}, "bytes_by_kind_dtype": {}, "calls_by_crossing": {},
+                                        "bytes_by_crossing": {}, "states_synced": 0,
+                                        "sparse": dict.fromkeys(pcounters.SPARSE_KINDS, 0)}
     finally:
         pcounters.disable()
         pcounters.reset()
