@@ -250,7 +250,27 @@ Phases, in order; each raises on failure and none is caught:
    M7: ``auroc`` over path C's first batch inside and outside the deferred-check window: synchronizing calls of
    each, equal values, equal errors on an all-positive and an all-negative target. Path M runs no hand-written
    kernel: the JAX package's hierarchy, bitmap, row exchange and fold are XLA collectives and elementwise work.
-17. The ``kernels`` JSON line, then the device JSON as the last line.
+17. Path N, the sharded epoch, in the same group (nothing caught; no gather where a placement asked for the
+   ring: every row-sharded compute runs with the port's ``buffer_values``, ``buffer_all_gather`` and ``host_gather``
+   raising, and no gather fallback may warn). N1: path C's epoch (3 x 4,194,304 tied scores) in
+   ``MetricCollection([AUROC, AveragePrecision])`` with ``capacity=16,777,216`` placed with ``row_sharded()``: the
+   ring's values equal path C's gathered compute and its float64 oracle (rtol 1e-5), with 0 gather collectives;
+   epoch ms, peak bytes, collectives and synchronizing calls of both. N2: 1,000-class AUROC (macro) and AP over path
+   A's 20 steps (``capacity=81,920``: a (3, 1,000, 81,920) pack of ~1 GB): the gathered compute and a per-class numpy
+   oracle (rtol 1e-5); an absent class gives ``nan``. N3: ``ROC`` / ``PrecisionRecallCurve`` of path C's first
+   batch through ``sharded_clf_curve_matrix``: the oracle's distinct thresholds exactly, rates within rtol 1e-6. N4:
+   E3's Spearman and Kendall epochs on the ring against E3's gathered values and scipy (E3's tolerances). N5: path
+   F's eight retrieval metrics (``capacity=8,388,608``) through the regroup: path F's gathered epoch values (rtol
+   1e-6), 4 ``all_to_all`` a member (one a payload), no row dropped; a skewed run with ``regroup_capacity=1,024``
+   raises. N6: four Gloo processes of this script (``--n6-worker``, started first, read last, CPU): the ring (3
+   hops) for binary and 16-class AUROC / AP, the curve, Spearman and Kendall, the regroup over 4 destinations for
+   RetrievalMAP / MRR, their 2 x 2 hierarchical forms, and ``class_sharded`` over 2 x 2 for path A's collection,
+   every rank against one process's unsharded port (int64 bit for bit, floats to 1e-6) and the collectives against
+   the port's formula. N7: ``device_put(cuda)`` of a CPU-built collection, ``batch_sharded`` on one rank, the
+   placement after ``reset()``, ``class_sharded`` on a one-rank hierarchy (counts bit-equal). Path N runs no
+   hand-written kernel: the JAX package's engines are XLA (``ppermute``, ``all_to_all``, ``searchsorted``,
+   ``argsort``, ``segment_sum``), not Pallas; on one card the ring makes no hop.
+18. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -638,6 +658,9 @@ def phase_paths():
         t0 = time.perf_counter()
         path_m = run_path_m(dev, a_batches)
         path_m_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path_n = run_path_n(dev, a_batches, path_c, path_e, path_f)
+        path_n_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
 
@@ -675,10 +698,13 @@ def phase_paths():
     t0 = time.perf_counter()
     m_timings = check_path_m(path_m)
     print(f"    path M: {path_m_s:.1f} s on the card and in M6's processes, {time.perf_counter() - t0:.1f} s of checks")
+    t0 = time.perf_counter()
+    n_timings = check_path_n(path_n, a_batches)
+    print(f"    path N: {path_n_s:.1f} s on the card and in N6's processes, {time.perf_counter() - t0:.1f} s of checks")
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
             "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings, "j": j_timings,
-            "k": k_timings, "l": l_timings, "m": m_timings}
+            "k": k_timings, "l": l_timings, "m": m_timings, "n": n_timings}
 
 
 def _profile_step(collection, batch):
@@ -6291,6 +6317,585 @@ def check_path_m(result):
     return timings
 
 
+# ---------------------------------------------------------------- path N: the sharded epoch
+N2_CAPACITY = A_STEPS * A_BATCH  # path A's epoch: 81,920 rows of 1,000 classes
+N5_SKEW_ROWS, N5_SKEW_BUCKET = 4_096, 1_024  # the skewed regroup: 4,096 rows of one query into 1,024-row buckets
+N6_WORLD, N6_SLICES = 4, 2
+N6_N = 65_536  # global rows of N6's ring and regroup runs: 16,384 a rank
+N6_CLASSES = 16
+N6_KENDALL = 4_096  # Kendall's global rows: 1,024 a rank
+N6_QUERIES = 2_048
+N6_A_STEPS, N6_A_BATCH = 4, 512  # class_sharded: path A's collection (1,000 classes) over 4 steps of 512
+RTOL_N = 1e-5  # sharded against gathered and float64 oracles: float32 sums in another order (N1, N2, N4 Spearman)
+RTOL_N6 = 1e-6  # N6's ranks against one process's unsharded port
+
+
+class _NoGather:
+    """Inside: the port's ``buffer_values``, ``buffer_all_gather`` and ``host_gather`` raise when called."""
+
+    def __enter__(self):
+        import metrics_tpu_torch.core.metric as pmetric
+        import metrics_tpu_torch.parallel.buffer as pbuffer
+        import metrics_tpu_torch.parallel.sync as psync
+
+        def boom(*_a, **_k):
+            raise AssertionError("path N: the sharded compute called a gather of the epoch")
+
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in
+                      ((pbuffer, "buffer_values"), (pbuffer, "buffer_all_gather"), (psync, "host_gather"),
+                       (pmetric, "host_gather"))]
+        for mod, name, _ in self.saved:
+            setattr(mod, name, boom)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _n_epoch(collection, device, sharded):
+    """One collection's epoch ``compute()``, uncached: its collectives by kind (the port's counters) and
+    synchronizing calls (torch's sync debug mode) in a first call, its peak device bytes above what was live
+    before it, and two timed calls. A sharded collection computes with the gather functions raising."""
+    import torch
+
+    from metrics_tpu_torch.observability import counters
+
+    def fresh():
+        for m in collection.values():
+            m._computed = None
+        return collection.compute()
+
+    owns = [m._states_own_sync() for m in collection.values()]
+    import contextlib
+
+    guard = _NoGather if sharded else contextlib.nullcontext
+    _sync(device)
+    base = torch.cuda.memory_allocated() if device.type == "cuda" else 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    counters.enable()
+    try:
+        with guard():
+            if device.type == "cuda":
+                sites, values = _host_sync_sites(fresh)
+            else:
+                sites, values = Counter(), fresh()
+            _sync(device)
+    finally:
+        snap = counters.snapshot()
+        counters.disable()
+    peak = torch.cuda.max_memory_allocated() - base if device.type == "cuda" else None
+    ms = []
+    with guard():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fresh()
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"values": values, "ms": ms, "peak_bytes": peak, "calls": dict(snap["calls_by_kind"]),
+            "syncs": sum(sites.values()), "sync_sites": sites.most_common(6), "owns_sync": owns}
+
+
+def _n_placed(collection):
+    from metrics_tpu_torch.parallel import row_sharded
+
+    return collection.device_put(row_sharded())
+
+
+def _n_feed(collection, batches):
+    for batch in batches:
+        collection.update(*batch)
+    return collection
+
+
+def _n_prc_oracle(scores, target):
+    """The precision / recall curve in float64 numpy, sklearn's orientation: thresholds ascending, cut at full
+    recall, (1, 0) appended."""
+    uniq, inverse = np.unique(scores, return_inverse=True)
+    pos = np.bincount(inverse, weights=target, minlength=len(uniq))[::-1]
+    neg = np.bincount(inverse, minlength=len(uniq))[::-1] - pos
+    tp, fp = np.cumsum(pos), np.cumsum(neg)
+    stop = int(np.argmax(tp >= tp[-1])) + 1
+    precision = np.concatenate([(tp / (tp + fp))[:stop][::-1], [1.0]])
+    recall = np.concatenate([(tp / tp[-1])[:stop][::-1], [0.0]])
+    return precision, recall, uniq[::-1][:stop][::-1]
+
+
+def run_path_n(device, a_batches, path_c, path_e, path_f):
+    """Path N inside the caller's process group: N1-N5 and N7 on the card, each sharded epoch beside the gathered
+    compute of the same rows; N6 in four Gloo processes started first and read last (killed if a part fails)."""
+    import shutil
+
+    started = _start_n6()
+    try:
+        out = _run_path_n_card(device, a_batches, path_c, path_e, path_f)
+    except BaseException:
+        for proc in started["procs"]:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+        raise
+    out["N6"] = _finish_n6(started)
+    return out
+
+
+def _run_path_n_card(device, a_batches, path_c, path_e, path_f):
+    """N1-N5 and N7 on the card."""
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.observability import counters
+    from metrics_tpu_torch.parallel import batch_sharded, class_sharded, hierarchical_mesh, row_sharded
+
+    out = {}
+    t0 = time.perf_counter()
+    # N1: path C's epoch, placed with row_sharded(), beside path C's gathered capacity-mode collection
+    c_batches = _to(device, path_c["host"])
+    gathered = path_c["runs"]["capacity"]["collection"]
+    sharded = _n_feed(_n_placed(_curve_collection(device, capacity=C_CAPACITY)), c_batches)
+    out["N1"] = {"gathered": _n_epoch(gathered, device, False), "sharded": _n_epoch(sharded, device, True),
+                 "path_c_epoch": path_c["runs"]["capacity"]["epoch"], "host": path_c["host"]}
+    sharded.reset()  # N7: the placement is applied again to the fresh buffers
+    _n_feed(sharded, c_batches[:1])
+    out["N7_reset"] = {"capacity": sharded["AUROC"].preds.capacity, "owns": sharded["AUROC"]._states_own_sync(),
+                       "placement": type(sharded["AUROC"]._placement).__name__}
+    del sharded
+    out["N1"]["s"] = time.perf_counter() - t0
+
+    # N2: 1,000-class AUROC and AP (macro) over path A's 20 steps, gathered and on the ring
+    t0 = time.perf_counter()
+
+    def n2(**kw):
+        return pt.MetricCollection([pt.AUROC(num_classes=A_CLASSES, average="macro", device=device, **kw),
+                                    pt.AveragePrecision(num_classes=A_CLASSES, device=device, **kw)])
+
+    gathered = _n_feed(n2(capacity=N2_CAPACITY), a_batches)
+    out["N2"] = {"gathered": _n_epoch(gathered, device, False)}
+    del gathered
+    sharded = _n_feed(_n_placed(n2(capacity=N2_CAPACITY)), a_batches)
+    out["N2"]["sharded"] = _n_epoch(sharded, device, True)
+    del sharded
+    absent = pt.AUROC(num_classes=4, average=None, device=device, capacity=1_024)
+    absent.device_put(row_sharded())
+    gen = torch.Generator(device=device).manual_seed(15)
+    absent.update(torch.softmax(torch.randn(512, 4, generator=gen, device=device), 1),
+                  torch.randint(0, 3, (512,), generator=gen, device=device))  # class 3 never occurs
+    with _NoGather():
+        out["N2"]["absent"] = [float(x) for x in absent.compute()]
+    out["N2"]["s"] = time.perf_counter() - t0
+
+    # N3: ROC and PrecisionRecallCurve of path C's first batch through the curve engine
+    t0 = time.perf_counter()
+    curves = _n_feed(_n_placed(pt.MetricCollection([pt.ROC(pos_label=1, device=device, capacity=C_N),
+                                                    pt.PrecisionRecallCurve(pos_label=1, device=device,
+                                                                            capacity=C_N)])), c_batches[:1])
+    n3 = _n_epoch(curves, device, True)
+    n3["values"] = {k: tuple(x.cpu().numpy() for x in v) for k, v in n3["values"].items()}
+    out["N3"] = n3
+    del curves
+    out["N3"]["s"] = time.perf_counter() - t0
+
+    # N4: E3's Spearman and Kendall epochs on the ring
+    t0 = time.perf_counter()
+    out["N4"] = {}
+    for kind, cls, (steps, n), seed in (("Spearman", pt.SpearmanCorrcoef, E3_SPEARMAN, 9),
+                                        ("Kendall", pt.KendallRankCorrCoef, E3_KENDALL, 10)):
+        run = path_e["E3"][f"{kind} capacity"]
+        col = _n_feed(_n_placed(pt.MetricCollection([cls(device=device, capacity=steps * n)])),
+                      _to(device, run["host"]))
+        out["N4"][kind] = {"gathered": _n_epoch(run["collection"], device, False),
+                           "sharded": _n_epoch(col, device, True), "host": run["host"],
+                           "path_e_epoch": run["epoch"]}
+    out["N4"]["s"] = time.perf_counter() - t0
+
+    # N5: path F's retrieval epoch through the regroup, beside path F's gathered capacity-mode collection
+    t0 = time.perf_counter()
+    f_run = path_f["runs"]["capacity"]
+    sharded = _n_feed(_n_placed(_f_collection(device, capacity=F_CAPACITY)), _to(device, path_f["host"]))
+    out["N5"] = {"gathered": _n_epoch(f_run["collection"], device, False), "sharded": _n_epoch(sharded, device, True),
+                 "path_f_epoch": f_run["epoch"]}
+    del sharded
+    skew = pt.RetrievalMRR(device=device, capacity=N5_SKEW_ROWS)
+    skew.regroup_capacity = N5_SKEW_BUCKET
+    skew.device_put(row_sharded())
+    skew.update(torch.zeros(N5_SKEW_ROWS, dtype=torch.int64, device=device),
+                torch.rand(N5_SKEW_ROWS, generator=gen, device=device),
+                torch.ones(N5_SKEW_ROWS, dtype=torch.int64, device=device))
+    try:
+        with _NoGather():
+            skew.compute()
+        out["N5"]["skew"] = "no error"
+    except RuntimeError as err:
+        out["N5"]["skew"] = str(err)
+    out["N5"]["s"] = time.perf_counter() - t0
+
+    # N7: device_put of a device on a CPU-built collection, batch_sharded on one rank, class_sharded on a
+    # one-rank hierarchy (path A's collection: counts bit-equal to the unplaced one)
+    t0 = time.perf_counter()
+    moved = _curve_collection("cpu", capacity=C_N)
+    moved.device_put(device)
+    place = batch_sharded(device=device)
+    for batch in c_batches[:1]:
+        moved.update(*place(batch))
+    out["N7"] = {"moved_device": str(moved["AUROC"].preds.data.device), "target": str(moved["AUROC"].device),
+                 "moved": moved.compute(),
+                 "batch_equal": all(torch.equal(a, b) for a, b in zip(place(c_batches[0]), c_batches[0]))}
+    h = hierarchical_mesh(slices=1)
+    placed, plain = _main_collection(device), _main_collection(device)
+    placed.device_put(class_sharded(h))
+    counters.reset()
+    counters.enable()
+    try:
+        for batch in a_batches[:2]:
+            placed.update(*batch)
+            plain.update(*batch)
+        synced = {k: placed[k]._synced_state() for k in placed}
+    finally:
+        calls = dict(counters.snapshot()["calls_by_kind"])
+        counters.disable()
+    want = {k: plain[k]._synced_state() for k in plain}
+    out["N7"]["class_counts_equal"] = all(torch.equal(synced[k][n], want[k][n]) for k in synced for n in synced[k])
+    out["N7"]["class_calls"] = calls
+    out["N7"]["class_values"] = (placed.compute(), plain.compute())
+    out["N7"]["s"] = time.perf_counter() - t0
+    return out
+
+
+def _n6_data():
+    """N6's global rows, the same in each of its processes and here: tied binary scores, 16-class
+    probabilities, a tied pair for the rank metrics, retrieval rows over 2,048 query ids, and path A's
+    collection's batches at 1,000 classes."""
+    import torch
+
+    rng = np.random.RandomState(615)
+    d = {"p": np.round(rng.rand(N6_N), 2).astype(np.float32), "t": (rng.rand(N6_N) < 0.3).astype(np.int64)}
+    d["pm"] = torch.softmax(torch.from_numpy(rng.randn(N6_N, N6_CLASSES).astype(np.float32)), 1).numpy()
+    d["tm"] = rng.randint(0, N6_CLASSES, N6_N).astype(np.int64)
+    d["x"] = np.round(rng.rand(N6_N), 3).astype(np.float32)
+    d["y"] = np.round(d["x"] + 0.5 * rng.randn(N6_N), 3).astype(np.float32)
+    d["idx"] = rng.randint(0, N6_QUERIES, N6_N).astype(np.int64)
+    d["rp"] = rng.rand(N6_N).astype(np.float32)
+    d["rt"] = (rng.rand(N6_N) < 0.2).astype(np.int64)
+    d["a"] = [(torch.softmax(torch.from_numpy(rng.randn(N6_A_BATCH, A_CLASSES).astype(np.float32)), 1).numpy(),
+               rng.randint(0, A_CLASSES, N6_A_BATCH)) for _ in range(N6_A_STEPS)]
+    return d
+
+
+def _n6_worker(rank, port, out):
+    """One of N6's four Gloo processes: the ring (3 hops flat, 1 two-level) for binary and per-class AUROC / AP,
+    the curve, Spearman and Kendall; the regroup (4 destinations, two stages two-level) for RetrievalMAP / MRR;
+    ``class_sharded`` over 2 x 2 for path A's collection; each with the counters it records."""
+    import torch
+    import torch.distributed as dist
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.observability import counters
+    from metrics_tpu_torch.parallel import batch_sharded, class_sharded
+    from metrics_tpu_torch.parallel import sharded_epoch as se
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=N6_WORLD, rank=rank)
+    try:
+        h = pt.parallel.hierarchical_mesh(slices=N6_SLICES)
+        d = _n6_data()
+        m = N6_N // N6_WORLD
+        b = {k: torch.from_numpy(v[rank * m:(rank + 1) * m]) for k, v in d.items() if k != "a"}
+        res = {"grid": [list(g) for g in h.grid]}
+
+        def run(name, fn):
+            counters.reset()
+            counters.enable()
+            t0 = time.perf_counter()
+            try:
+                value = fn()
+            finally:
+                snap = counters.snapshot()
+                counters.disable()
+            host = [x.tolist() for x in value] if isinstance(value, tuple) else value.tolist()
+            res[name] = {"value": host, "ms": (time.perf_counter() - t0) * 1e3,
+                         "calls": dict(snap["calls_by_kind"]), "crossings": dict(snap["calls_by_crossing"])}
+
+        onehot = (b["tm"][:, None] == torch.arange(N6_CLASSES)).to(torch.int32)
+        k = N6_KENDALL // N6_WORLD
+        for tag, g in (("flat", None), ("hier", h)):
+            run(f"{tag}/auroc", lambda: se.sharded_auroc(b["p"], b["t"], g))
+            run(f"{tag}/ap", lambda: se.sharded_average_precision(b["p"], b["t"], g))
+            run(f"{tag}/auroc_classes", lambda: se.sharded_auroc_matrix(b["pm"], onehot, g))
+            run(f"{tag}/ap_classes", lambda: se.sharded_average_precision_matrix(b["pm"], onehot, g))
+            run(f"{tag}/curve", lambda: se.sharded_clf_curve_matrix(b["p"][None, :], b["t"].float()[None, :],
+                                                                    torch.ones(1, m), g))
+            run(f"{tag}/spearman", lambda: se.sharded_spearman(b["x"], b["y"], g))
+            kx = torch.from_numpy(d["x"][rank * k:(rank + 1) * k])
+            ky = torch.from_numpy(d["y"][rank * k:(rank + 1) * k])
+            run(f"{tag}/kendall", lambda: se.sharded_kendall(kx, ky, g))
+            for name, make in (("map", lambda: pt.RetrievalMAP(device="cpu")),
+                               ("mrr", lambda: pt.RetrievalMRR(device="cpu"))):
+                run(f"{tag}/{name}", lambda: se.sharded_retrieval_sums(make(), b["idx"], b["rp"], b["rt"], g))
+        col = _main_collection("cpu")
+        col.device_put(class_sharded(h))
+        place = batch_sharded(h.dcn)
+        counters.reset()
+        counters.enable()
+        for preds, target in d["a"]:
+            col.update(*place((torch.from_numpy(preds), torch.from_numpy(target))))
+        synced = {name: {n: v.tolist() for n, v in col[name]._synced_state().items()} for name in col}
+        values = {name: float(v) for name, v in col.compute().items()}
+        snap = counters.snapshot()
+        counters.disable()
+        res["class"] = {"synced": synced, "values": values, "calls": dict(snap["calls_by_kind"]),
+                        "bytes": dict(snap["bytes_by_crossing"])}
+        with open(out, "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _start_n6():
+    """N6's four Gloo processes of this script (``--n6-worker``), started now, on the CPU."""
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(__file__)), prefix="_n6_")
+    outs = [os.path.join(tmp, f"n6_{r}.json") for r in range(N6_WORLD)]
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--n6-worker", str(r), str(port), outs[r]],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(N6_WORLD)]
+    return {"procs": procs, "outs": outs, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def _finish_n6(started):
+    """Wait for N6's processes (killed if they outlive their timeout) and read their results."""
+    import shutil
+
+    procs = started["procs"]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    try:
+        if [p.returncode for p in procs] != [0] * N6_WORLD:
+            raise AssertionError(f"N6 workers failed: {[p.returncode for p in procs]} {logs}")
+        results = []
+        for path in started["outs"]:
+            with open(path) as f:
+                results.append(json.load(f))
+    finally:
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    return {"ranks": results, "s": time.perf_counter() - started["t0"]}
+
+
+def _n_line(label, part):
+    return (f"{label}: epoch compute {part['ms'][0]:.2f} / {part['ms'][1]:.2f} ms, peak {part['peak_bytes']} B above"
+            f" the state, collectives {part['calls']}, synchronizing calls {part['syncs']} {part['sync_sites']}")
+
+
+def _n_values(values):
+    return {k: (float(v) if not isinstance(v, (list, tuple)) else [float(x) for x in v]) for k, v in values.items()}
+
+
+def _n_class_oracle(a_batches):
+    """Per-class AUROC and AP of path A's epoch in float64 numpy (path C's rank and step-integral oracle a class)."""
+    p = np.concatenate([b[0].cpu().numpy() for b in a_batches]).astype(np.float64)
+    t = np.concatenate([b[1].cpu().numpy() for b in a_batches])
+    auroc, ap = [], []
+    for c in range(p.shape[1]):
+        a_c, p_c, _, _, _ = _curve_oracle(p[:, c], (t == c).astype(np.float64))
+        auroc.append(a_c)
+        ap.append(p_c)
+    return float(np.mean(auroc)), np.array(ap)
+
+
+def check_path_n(result, a_batches):
+    """Each sharded epoch against its gathered compute and a float64 oracle; no gather, no fallback; N6's ranks
+    against one process's unsharded port and the collectives against the port's formula."""
+    import scipy.stats
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.utils.prints import _WARN_ONCE_SEEN
+
+    timings = {}
+    fallbacks = [m for m in _WARN_ONCE_SEEN if "fall back to the gathered" in m]
+    _check(not fallbacks, f"path N: no gather fallback warned ({fallbacks})")
+
+    n1 = result["N1"]
+    auroc, ap, _, _, _ = _curve_oracle(np.concatenate([s for s, _ in n1["host"]]),
+                                       np.concatenate([t for _, t in n1["host"]]))
+    s, g = _n_values(n1["sharded"]["values"]), _n_values(n1["gathered"]["values"])
+    for k, want in (("AUROC", auroc), ("AveragePrecision", ap)):
+        _check(np.isclose(s[k], want, rtol=RTOL_N, atol=0) and np.isclose(s[k], g[k], rtol=RTOL_N, atol=0)
+               and np.isclose(s[k], float(n1["path_c_epoch"][k]), rtol=RTOL_N, atol=0),
+               f"path N1 {k} on the ring = {s[k]:.7f}: the gathered {g[k]:.7f} and the oracle {want:.7f} (rtol {RTOL_N})")
+    calls = n1["sharded"]["calls"]
+    _check(all(n1["sharded"]["owns_sync"]) and not {"all_gather", "coalesced_gather"} & set(calls),
+           f"path N1: both members own their sync; 0 gather collectives ({calls}); no call into the gather functions")
+    print(f"[17] path N1 (path C's epoch, {C_STEPS * C_N} rows, capacity {C_CAPACITY}):")
+    print("    " + _n_line("gathered", n1["gathered"]))
+    print("    " + _n_line("row-sharded", n1["sharded"]))
+    timings["N1"] = {k: {x: n1[k][x] for x in ("ms", "peak_bytes", "calls", "syncs")} for k in ("gathered", "sharded")}
+
+    n2 = result["N2"]
+    macro, ap_classes = _n_class_oracle(a_batches)
+    s, g = _n_values(n2["sharded"]["values"]), _n_values(n2["gathered"]["values"])
+    _check(np.isclose(s["AUROC"], macro, rtol=RTOL_N, atol=0) and np.isclose(s["AUROC"], g["AUROC"], rtol=RTOL_N,
+                                                                                   atol=0),
+           f"path N2 macro AUROC over {A_CLASSES} classes = {s['AUROC']:.7f}: gathered {g['AUROC']:.7f}, oracle {macro:.7f}")
+    _check(np.allclose(s["AveragePrecision"], ap_classes, rtol=RTOL_N, atol=0)
+           and np.allclose(s["AveragePrecision"], g["AveragePrecision"], rtol=RTOL_N, atol=0),
+           f"path N2 AP of each of the {A_CLASSES} classes within rtol {RTOL_N} of the gathered compute and the oracle")
+    absent = n2["absent"]
+    _check(np.isnan(absent[3]) and not np.isnan(absent[:3]).any(), f"path N2: an absent class gives nan ({absent})")
+    print("    " + _n_line("N2 gathered", n2["gathered"]))
+    print("    " + _n_line("N2 row-sharded", n2["sharded"]))
+    timings["N2"] = {k: {x: n2[k][x] for x in ("ms", "peak_bytes", "calls", "syncs")} for k in ("gathered", "sharded")}
+
+    n3 = result["N3"]
+    scores0, target0 = n1["host"][0]
+    _, _, thr0, fpr0, tpr0 = _curve_oracle(scores0, target0)
+    fpr, tpr, thr, count = n3["values"]["ROC"]
+    c = int(count)
+    _check(c == len(thr0) + 1 and np.array_equal(thr[1:c], thr0.astype(np.float32)) and thr[0] == thr0[0] + 1,
+           f"path N3 ROC on the ring: exactly the oracle's {len(thr0)} distinct thresholds (max + 1 first)")
+    _check(np.allclose(fpr[:c], fpr0, rtol=RTOL_CURVE, atol=0) and np.allclose(tpr[:c], tpr0, rtol=RTOL_CURVE, atol=0),
+           f"path N3 ROC: fpr / tpr within rtol {RTOL_CURVE} of the oracle")
+    precision, recall, thp, count = n3["values"]["PrecisionRecallCurve"]
+    c = int(count)
+    o_p, o_r, o_t = _n_prc_oracle(scores0, target0)
+    _check(c == len(o_t) and np.array_equal(thp[:c], o_t.astype(np.float32))
+           and np.allclose(precision[:c + 1], o_p, rtol=RTOL_CURVE, atol=0)
+           and np.allclose(recall[:c + 1], o_r, rtol=RTOL_CURVE, atol=0),
+           f"path N3 PrecisionRecallCurve: {c} thresholds, precision / recall within rtol {RTOL_CURVE} of the oracle")
+    print("    " + _n_line("N3 ROC + PRC", n3))
+    timings["N3"] = {x: n3[x] for x in ("ms", "peak_bytes", "calls", "syncs")}
+
+    timings["N4"] = {}
+    for kind, fn, rtol in (("Spearman", scipy.stats.spearmanr, RTOL_E), ("Kendall", scipy.stats.kendalltau,
+                                                                          RTOL_KENDALL)):
+        run = result["N4"][kind]
+        key = next(iter(run["sharded"]["values"]))
+        got = float(run["sharded"]["values"][key])
+        p = np.concatenate([x for x, _ in run["host"]])
+        t = np.concatenate([y for _, y in run["host"]])
+        want = fn(p, t).statistic
+        gathered = float(run["path_e_epoch"][key])
+        _check(np.isclose(got, gathered, rtol=rtol, atol=0) and np.isclose(got, want, rtol=rtol, atol=0),
+               f"path N4 {kind} on the ring over {len(p)} rows = {got:.7g}: E3's gathered {gathered:.7g},"
+               f" scipy {want:.7g} (rtol {rtol})")
+        print("    " + _n_line(f"N4 {kind} gathered", run["gathered"]))
+        print("    " + _n_line(f"N4 {kind} row-sharded", run["sharded"]))
+        timings["N4"][kind] = {k: {x: run[k][x] for x in ("ms", "peak_bytes", "calls", "syncs")}
+                               for k in ("gathered", "sharded")}
+
+    n5 = result["N5"]
+    s, f = _n_values(n5["sharded"]["values"]), _n_values(n5["path_f_epoch"])
+    worst = max(abs(s[k] - f[k]) / max(abs(f[k]), 1e-30) for k in f)
+    _check(all(np.isclose(s[k], f[k], rtol=RTOL_F, atol=0) for k in f),
+           f"path N5: the eight retrieval values through the regroup equal path F's gathered epoch (rtol {RTOL_F};"
+           f" max rel diff {worst:.3g})")
+    calls = n5["sharded"]["calls"]
+    _check(calls.get("all_to_all") == 4 * 8 and not {"all_gather", "coalesced_gather"} & set(calls),
+           f"path N5: one all_to_all a payload, 4 a member, 32 in all; no gather ({calls}); 0 rows dropped")
+    _check("regroup_capacity" in n5["skew"], f"path N5: the skewed run raised: {n5['skew'][:90]}")
+    print("    " + _n_line("N5 gathered", n5["gathered"]))
+    print("    " + _n_line("N5 row-sharded", n5["sharded"]))
+    timings["N5"] = {k: {x: n5[k][x] for x in ("ms", "peak_bytes", "calls", "syncs")} for k in ("gathered", "sharded")}
+
+    n7 = result["N7"]
+    moved = _n_values(n7["moved"])
+    auroc0, ap0, _, _, _ = _curve_oracle(scores0, target0)
+    _check(n7["moved_device"] == n7["target"] != "cpu" and np.isclose(moved["AUROC"], auroc0, rtol=RTOL_ORACLE, atol=0)
+           and np.isclose(moved["AveragePrecision"], ap0, rtol=RTOL_ORACLE, atol=0) and n7["batch_equal"],
+           f"path N7: device_put(cuda) moved a CPU-built collection ({n7['moved_device']}); batch_sharded on one rank"
+           " keeps the batch")
+    _check(result["N7_reset"]["capacity"] == C_CAPACITY and result["N7_reset"]["owns"],
+           f"path N7: after reset() the {result['N7_reset']['placement']} placement holds (capacity"
+           f" {result['N7_reset']['capacity']}, the ring owns the sync)")
+    placed, plain = (_n_values(v) for v in n7["class_values"])
+    _check(n7["class_counts_equal"] and all(np.isclose(placed[k], plain[k], rtol=RTOL_CLASS, atol=0) for k in plain),
+           f"path N7: class_sharded on a one-rank hierarchy: synced counts bit-equal, values equal ({n7['class_calls']})")
+
+    n6 = result["N6"]
+    d = _n6_data()
+    ref = {}
+    for name, make, args in (
+            ("auroc", lambda: pt.AUROC(pos_label=1, device="cpu"), ("p", "t")),
+            ("ap", lambda: pt.AveragePrecision(pos_label=1, device="cpu"), ("p", "t")),
+            ("auroc_classes", lambda: pt.AUROC(num_classes=N6_CLASSES, average=None, device="cpu"), ("pm", "tm")),
+            ("ap_classes", lambda: pt.AveragePrecision(num_classes=N6_CLASSES, device="cpu"), ("pm", "tm")),
+            ("spearman", lambda: pt.SpearmanCorrcoef(device="cpu"), ("x", "y")),
+            ("map", lambda: pt.RetrievalMAP(device="cpu"), ("idx", "rp", "rt")),
+            ("mrr", lambda: pt.RetrievalMRR(device="cpu"), ("idx", "rp", "rt"))):
+        metric = make()
+        metric.update(*(_torch_of(d[a]) for a in args))
+        value = metric.compute()
+        ref[name] = [float(x) for x in value] if isinstance(value, list) else float(value)
+    kendall = pt.KendallRankCorrCoef(device="cpu")
+    kendall.update(_torch_of(d["x"][:N6_KENDALL]), _torch_of(d["y"][:N6_KENDALL]))
+    ref["kendall"] = float(kendall.compute())
+    roc = pt.ROC(pos_label=1, device="cpu")
+    roc.update(_torch_of(d["p"]), _torch_of(d["t"]))
+    ref_fpr, ref_tpr, ref_thr = (x.numpy() for x in roc.compute())
+    worst = 0.0
+    for r, res in enumerate(n6["ranks"]):
+        for tag in ("flat", "hier"):
+            for name, want in ref.items():
+                got = np.asarray(res[f"{tag}/{name}"]["value"], dtype=np.float64)
+                got = got[0] if name in ("map", "mrr") else got
+                if not np.allclose(got, want, rtol=RTOL_N6, atol=0):
+                    raise AssertionError(f"path N6 rank {r} {tag} {name}: {got} vs the unsharded port {want}")
+                worst = max(worst, float(np.max(np.abs(got - np.asarray(want)) / np.abs(np.asarray(want)))))
+            fps, tps, thr, counts = (np.asarray(x) for x in res[f"{tag}/curve"]["value"])
+            k = int(counts[0])
+            if not (k == len(ref_thr) - 1 and np.array_equal(thr[0, :k], ref_thr[1:])
+                    and np.allclose(fps[0, :k] / fps[0, k - 1], ref_fpr[1:], rtol=RTOL_N6, atol=0)
+                    and np.allclose(tps[0, :k] / tps[0, k - 1], ref_tpr[1:], rtol=RTOL_N6, atol=0)):
+                raise AssertionError(f"path N6 rank {r} {tag}: the curve's {k} points differ from the unsharded ROC's")
+            hops = N6_WORLD - 1 if tag == "flat" else N6_WORLD // N6_SLICES - 1
+            calls = res[f"{tag}/auroc"]["calls"]
+            want_calls = {"ppermute": hops, "psum": 1} if tag == "flat" else {"all_gather": 1, "ppermute": hops,
+                                                                                  "psum": 2}
+            if calls != want_calls or res[f"{tag}/mrr"]["calls"].get("all_to_all") != (4 if tag == "flat" else 8):
+                raise AssertionError(f"path N6 rank {r} {tag}: collectives {calls}, regroup"
+                                     f" {res[f'{tag}/mrr']['calls']}, not the port's formula")
+    print(f"  ok: path N6, {N6_WORLD} Gloo processes ({n6['s']:.1f} s): every ring, curve and regroup value of every"
+          f" rank, flat and 2 x 2, within rtol {RTOL_N6} of one process's unsharded port (max rel diff {worst:.3g});"
+          f" a flat ring {N6_WORLD - 1} ppermute + 1 psum, two-level 1 all_gather + 1 ppermute + 2 psum; a regroup"
+          " 4 all_to_all flat, 8 two-level")
+    plain = _main_collection("cpu")
+    for preds, target in d["a"]:
+        plain.update(_torch_of(preds), _torch_of(target))
+    # one process fed every row: its local counts are the epoch's
+    want_synced = {name: {n: getattr(plain[name], n).tolist() for n in plain[name]._defaults} for name in plain}
+    want_values = {k: float(v) for k, v in plain.compute().items()}
+    for r, res in enumerate(n6["ranks"]):
+        cls = res["class"]
+        if cls["synced"] != want_synced or not all(np.isclose(cls["values"][k], want_values[k], rtol=RTOL_N6, atol=0)
+                                                   for k in want_values):
+            raise AssertionError(f"path N6 rank {r}: class_sharded counts or values differ from the unsharded run")
+    print(f"  ok: path N6 class_sharded over 2 x 2 on every rank: the synced int64 counts of path A's collection"
+          f" ({N6_A_STEPS} x {N6_A_BATCH} x {A_CLASSES}) bit-equal to one process's unsharded collection, values within"
+          f" rtol {RTOL_N6} ({n6['ranks'][0]['class']['calls']})")
+    timings["N6"] = {"s": n6["s"], "ring_ms": {tag: n6["ranks"][0][f"{tag}/auroc"]["ms"] for tag in ("flat", "hier")},
+                     "regroup_ms": {tag: n6["ranks"][0][f"{tag}/mrr"]["ms"] for tag in ("flat", "hier")},
+                     "class_bytes": n6["ranks"][0]["class"]["bytes"]}
+    print(f"    path N: N1 {result['N1']['s']:.1f} s, N2 {result['N2']['s']:.1f} s, N3 {result['N3']['s']:.1f} s,"
+          f" N4 {result['N4']['s']:.1f} s, N5 {result['N5']['s']:.1f} s, N7 {result['N7']['s']:.1f} s on the card;"
+          f" N6 {n6['s']:.1f} s in its processes; N6 ring / regroup ms (rank 0) {timings['N6']['ring_ms']} /"
+          f" {timings['N6']['regroup_ms']}")
+    return timings
+
+
+def _torch_of(x):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
 def main() -> int:
     import torch
 
@@ -6362,6 +6967,8 @@ def main() -> int:
         "path_m_ms_per_round": {k: paths["m"][k]["ms_per_round"] for k in ("M1", "M2", "M3")},
         "path_m1_bytes_per_round": {"sparse": paths["m"]["M1"]["bytes_per_round"],
                                     "dense": paths["m"]["M1"]["dense_bytes"]},
+        "path_n_epoch_ms": {k: {side: v[side]["ms"] for side in ("gathered", "sharded")}
+                            for k, v in paths["n"].items() if k in ("N1", "N2", "N5")},
     }
 
     print(json.dumps({"kernels": [kernel]}))
@@ -6378,4 +6985,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--m6-worker":  # one of path M's four Gloo processes
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(_m6_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--n6-worker":  # one of path N's four Gloo processes
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(_n6_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -104,6 +104,13 @@ class _CurveMetric(Metric):
         return device_constant(("sketch thresholds", self.num_bins, lo, hi), self.device,
                                lambda: sketch_thresholds(self.num_bins, lo, hi), torch.float32).clone()
 
+    def _states_own_sync(self) -> bool:
+        # ROC and PrecisionRecallCurve: their padded curves run on the ring over row-sharded
+        # states (AUROC and AveragePrecision override this with their own dispatch's test)
+        from metrics_tpu_torch.parallel.sharded_dispatch import curve_applicable
+
+        return curve_applicable(self) is not None
+
     def _group_fingerprint(self) -> Optional[Any]:
         # sketch-mode curve metrics share one update (the scatter of
         # sketch_curve_update / qsketch_curve_update) across the curve family:

@@ -4,7 +4,9 @@ Counterpart of ``metrics_tpu/classification/_padded_curves.py``. When the
 epoch states are PaddedBuffers (a metric built with ``capacity``), compute runs
 the static-shape padded kernels of ``functional/classification/curve_static.py``:
 capacity-length curves plus a valid count, with no data-dependent shape. The
-only host read is the row-count check.
+only host read is the row-count check. Row-sharded states
+(``parallel.placement.row_sharded``) take the ring and the key-sort of
+``parallel/sharded_dispatch.curve_sharded`` instead, with the same output.
 """
 from typing import Any, Optional
 
@@ -38,6 +40,11 @@ def padded_curve_compute(metric: Any, kind: str) -> Optional[tuple]:
     ``None`` sends the caller down the dynamic path."""
     if not isinstance(metric.preds, PaddedBuffer):
         return None
+    from metrics_tpu_torch.parallel.sharded_dispatch import curve_sharded
+
+    sharded = curve_sharded(metric, kind)  # row-sharded states: the ring and a key-sort
+    if sharded is not None:
+        return sharded
     _check_counts(metric, metric.preds, metric.target)
     pos_label = metric.pos_label if metric.pos_label is not None else 1
     return _KERNELS[kind](

@@ -121,9 +121,19 @@ class AUROC(_CurveMetric):
             raise ValueError("error_bound() needs approx='sketch' or 'qsketch'")
         return auroc_error_bound(self.hist.counts)
 
+    def _states_own_sync(self) -> bool:
+        from metrics_tpu_torch.parallel.sharded_dispatch import _AUROC_FALLBACK, auroc_applicable, owns_sync
+
+        return owns_sync(self, auroc_applicable(self), _AUROC_FALLBACK, "preds", "target")
+
     def compute(self) -> Tensor:
         if self.approx is not None:
             return self._sketch_compute()
+        from metrics_tpu_torch.parallel.sharded_dispatch import auroc_sharded
+
+        sharded = auroc_sharded(self)  # row-sharded epoch states: the exact ring
+        if sharded is not None:
+            return sharded
         preds, target = as_values(self.preds), as_values(self.target)
         mode = self.mode
         if mode is None:  # a rank with no update of its own computes from the gathered states

@@ -84,9 +84,19 @@ class AveragePrecision(_CurveMetric):
             raise ValueError("collision_bound() needs approx='sketch' or 'qsketch'")
         return curve_collision_bound(self.hist.counts)
 
+    def _states_own_sync(self) -> bool:
+        from metrics_tpu_torch.parallel.sharded_dispatch import _AP_FALLBACK, average_precision_applicable, owns_sync
+
+        return owns_sync(self, average_precision_applicable(self), _AP_FALLBACK, "preds", "target")
+
     def compute(self) -> Union[List[Tensor], Tensor]:
         if self.approx is not None:
             return average_precision_from_histogram(self.hist.counts)
+        from metrics_tpu_torch.parallel.sharded_dispatch import average_precision_sharded
+
+        sharded = average_precision_sharded(self)  # row-sharded epoch states: the exact ring
+        if sharded is not None:
+            return sharded
         return _average_precision_compute(
             as_values(self.preds), as_values(self.target), self.num_classes, self.pos_label
         )

@@ -172,7 +172,7 @@ class MetricCollection(nn.ModuleDict):
         by_rep: Dict[str, list] = {}
         for k, rep in shared.items():
             m = self[k]
-            if (m.dist_sync_on_step and m.compute_on_step and not m.sync_lag
+            if (m.dist_sync_on_step and m.compute_on_step and not m.sync_lag and not m._states_own_sync()
                     and (m.dist_sync_fn is not None or active)):
                 by_rep.setdefault(rep, []).append(k)
         out: Dict[str, str] = {}
@@ -311,8 +311,9 @@ class MetricCollection(nn.ModuleDict):
         out: Dict[str, Any] = {}
         for rep, members in self.compute_groups.items():
             rep_m = self[rep]
-            if len(members) < 2 or (rep_m.dist_sync_fn is None and not active):
+            if len(members) < 2 or (rep_m.dist_sync_fn is None and not active) or rep_m._states_own_sync():
                 continue
+            # a member whose row-sharded states combine inside its sharded engine takes no gather
             share = [
                 k for k in members
                 if k not in self._diverged
@@ -320,6 +321,7 @@ class MetricCollection(nn.ModuleDict):
                 and self[k]._computed is None
                 and self[k].dist_sync_fn is rep_m.dist_sync_fn
                 and self[k].process_group is rep_m.process_group
+                and not self[k]._states_own_sync()
             ]
             if len(share) < 2:
                 continue
@@ -335,6 +337,16 @@ class MetricCollection(nn.ModuleDict):
                     m._set_state(cache)
                     m._to_sync = True
         return out
+
+    def device_put(self, device_or_placement: Any) -> "MetricCollection":
+        """Place every member's states (``Metric.device_put``): a device, or a
+        placement policy such as ``row_sharded()`` / ``class_sharded(h)``.
+        The members keep their lockstep: they were placed together."""
+        for m in self.values():
+            m.device_put(device_or_placement)
+        self._groups = None  # the compute-group key holds the placement
+        self._lockstep_record()
+        return self
 
     def reset(self) -> None:
         for m in self.values():
@@ -392,7 +404,16 @@ class MetricCollection(nn.ModuleDict):
 
         ``deferred=True`` enters the same collectives without waiting and
         returns one :class:`~metrics_tpu_torch.parallel.deferred.SyncHandle`
-        that resolves to the same nested ``{member: {state: value}}`` dict."""
+        that resolves to the same nested ``{member: {state: value}}`` dict.
+        Under ``class_sharded`` each entry syncs its class blocks on its own
+        (``Metric.sync_state``), and there is no deferred form."""
+        class_placed = [k for k in state if self[k]._class_placement() is not None]
+        if class_placed and group is None:
+            # the class blocks sync an entry at a time (a block is a slice of one entry's states)
+            if len(class_placed) != len(state):
+                raise ValueError("sync_state: some entries are class_sharded and some are not; place the whole"
+                                 " collection with one device_put")
+            return {k: self[k].sync_state(s, deferred=deferred) for k, s in state.items()}
         flat = {(k, n): v for k, s in state.items() for n, v in s.items()}
         reductions = {(k, n): self[k]._reductions[n] for k, s in state.items() for n in s}
         layouts = {(k, n): self[k]._cat_layouts[n] for k, s in state.items() for n in s if n in self[k]._cat_layouts}

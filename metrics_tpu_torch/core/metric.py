@@ -47,6 +47,13 @@ Counterpart of ``metrics_tpu/core/metric.py`` (``Metric``). What carries over:
   pickle or deepcopy. ``sync_state(state, group, deferred=True)`` returns a
   handle;
 * ``astype`` and ``state_pytree``;
+* placement: ``device_put`` takes a ``torch.device`` or a placement policy of
+  ``parallel/placement.py`` (``row_sharded``, ``class_sharded``), remembers
+  it, and applies it again to every fresh state (``reset``, the forward delta,
+  the pure ``init``) and to a buffer promoted at its first append. A metric
+  whose ``compute()`` runs a sharded engine over its row-sharded states
+  (``_states_own_sync``) skips the gather; a ``class_sharded`` metric syncs
+  its class blocks over dp and reassembles them over mp;
 * ``reset``, and ``state_dict`` / ``load_state_dict`` in the JAX package's key
   layout (host numpy values, a buffer as ``{"data", "count"}``, a sketch as
   ``{"sketch_counts"}``, plus ``_count_bound`` and ``_epoch_watermark``), so a
@@ -109,7 +116,7 @@ _NON_CONFIG_ATTRS = frozenset(vars(nn.Module())) | frozenset(_WRAPPER_ATTRS) | f
     "_update_signature", "_computed", "_forward_cache", "_count_bound", "_epoch_watermark",
     "_to_sync", "_in_forward", "compute_on_step", "dist_sync_on_step", "process_group", "dist_sync_fn",
     "_defaults", "_persistent", "_reductions", "_cat_layouts", "device",
-    "check_finite", "sync_lag", "_handle_ring", "_lag_controller", "_state_dtype",
+    "check_finite", "sync_lag", "_handle_ring", "_lag_controller", "_state_dtype", "_placement",
 })
 
 
@@ -340,6 +347,7 @@ class Metric(nn.Module, ABC):
         self._handle_ring: deque = deque()  # in-flight SyncHandles, oldest first (sync_lag >= 1)
         self._lag_controller = None  # a LagController, built at first use (sync_lag="auto")
         self._state_dtype: Optional[torch.dtype] = None  # the last astype target, re-applied at reset
+        self._placement: Any = None  # the last device_put target, applied to every fresh state
         self._to_sync = True
         self._in_forward = False
         self._computed = None
@@ -451,8 +459,12 @@ class Metric(nn.Module, ABC):
         rows = torch.atleast_1d(value)
         self._cat_layouts.setdefault(name, (rows.dtype, tuple(rows.shape[1:])))
         if self.capacity is not None and isinstance(self._defaults[name], list) and not current:
-            self._defaults[name] = _BufferSpec(self.capacity, tuple(rows.shape[1:]), rows.dtype)
-            setattr(self, name, buffer_append(self._materialize(self._defaults[name]), rows))
+            spec = _BufferSpec(self.capacity, tuple(rows.shape[1:]), rows.dtype)
+            # a placement may reject the buffer (row_sharded's divisibility): it raises before the
+            # spec is committed, so a retried update does not half-promote the cat states
+            buf = self._fresh(name, spec)
+            self._defaults[name] = spec
+            setattr(self, name, buffer_append(buf, rows))
             return
         current.append(value)
 
@@ -464,11 +476,95 @@ class Metric(nn.Module, ABC):
         return default.clone() if isinstance(default, Tensor) else []
 
     def init_state(self) -> State:
-        """Fresh default state dict, on ``self.device``."""
-        return {n: self._materialize(d) for n, d in self._defaults.items()}
+        """Fresh default state dict, on ``self.device``, placed by the remembered placement."""
+        return {n: self._fresh(n, d) for n, d in self._defaults.items()}
 
     def _current_state(self) -> State:
         return {name: getattr(self, name) for name in self._defaults}
+
+    # -------------------------------------------------------------- placement
+    def device_put(self, device_or_placement: Any) -> "Metric":
+        """Place every state: on a ``torch.device`` (or its name), through
+        ``.to()``, or by a placement callable ``(name, value) -> target``
+        resolved state by state (``parallel.placement.row_sharded`` /
+        ``class_sharded``; a target is ``None`` to keep the state as it is, a
+        ``torch.device``, a ``RowBlock`` or a ``ClassBlock``).
+
+        The placement is remembered and applied to every fresh state: at
+        ``reset()``, to the forward's delta and the pure ``init``, and to a
+        buffer promoted at its first append. Every target is resolved before
+        any state changes, so a placement that rejects a state leaves the
+        metric as it was."""
+        if not callable(device_or_placement):
+            self.to(torch.device(device_or_placement))
+            self._placement = device_or_placement
+            return self
+        if getattr(device_or_placement, "kind", None) == "class" and self.dist_sync_fn is not None:
+            raise ValueError("class_sharded syncs over its hierarchy's groups; it does not take a `dist_sync_fn`")
+        placed = {name: self._placed(name, getattr(self, name), self._defaults[name], device_or_placement)
+                  for name in self._defaults}
+        self._placement = device_or_placement
+        self._set_state(placed)
+        self._computed = None
+        return self
+
+    def _placed(self, name: str, value: Any, default: Any, placement: Any = None) -> Any:
+        """``value`` as ``placement`` (default: the remembered one) places state ``name``."""
+        placement = self._placement if placement is None else placement
+        if placement is None or not callable(placement):
+            return value
+        from metrics_tpu_torch.parallel.placement import ClassBlock, RowBlock
+
+        view = value
+        if isinstance(value, PaddedBuffer) and isinstance(default, _BufferSpec):
+            # the policy sees the global capacity, whatever block the state holds now
+            view = PaddedBuffer(torch.empty((default.capacity, *value.data.shape[1:]), dtype=value.data.dtype,
+                                            device="meta"), value.count)
+        elif isinstance(value, list):
+            return value
+        target = placement(name, view)
+        if target is None or isinstance(target, ClassBlock):
+            return value  # replicated, or class-sharded at sync time only
+        if isinstance(target, RowBlock):
+            local = view.capacity // target.world
+            if value.capacity == local:
+                return value
+            # the rows held so far, as far as the block reaches; ``count`` stays, so rows
+            # beyond the block show as an overflow at compute (no host read here)
+            block = buffer_init(local, tuple(value.data.shape[1:]), value.data.dtype, device=value.data.device)
+            block.data[: min(local, value.capacity)] = value.data[:local]
+            return PaddedBuffer(block.data, value.count.clone())
+        device = torch.device(target)
+        if isinstance(value, PaddedBuffer):
+            return PaddedBuffer(value.data.to(device), value.count.to(device))
+        if is_sketch(value):
+            return type(value)(value.counts.to(device))
+        return value.to(device)
+
+    def _fresh(self, name: str, default: Any) -> Any:
+        """A fresh state for ``default``, placed: a row-sharded buffer is made
+        at its block's capacity directly, never at the global one."""
+        if isinstance(default, _BufferSpec) and callable(self._placement):
+            from metrics_tpu_torch.parallel.placement import RowBlock
+
+            probe = PaddedBuffer(torch.empty((default.capacity, *default.item_shape), dtype=default.dtype,
+                                             device="meta"), torch.zeros((), dtype=torch.int64, device="meta"))
+            target = self._placement(name, probe)
+            if isinstance(target, RowBlock):
+                return buffer_init(default.capacity // target.world, default.item_shape, default.dtype,
+                                   device=self.device)
+        return self._placed(name, self._materialize(default), default)
+
+    def _states_own_sync(self) -> bool:
+        """Whether this compute will run a sharded epoch engine whose
+        collectives combine the ranks' states, making the gather redundant.
+        The metrics with a sharded dispatch override it with the dispatch's
+        own applicability test: a declined dispatch must gather."""
+        return False
+
+    def _class_placement(self) -> Any:
+        placement = self._placement
+        return placement if getattr(placement, "kind", None) == "class" else None
 
     def _set_state(self, state: State) -> None:
         for name, value in state.items():
@@ -515,6 +611,11 @@ class Metric(nn.Module, ABC):
         returns a :class:`~metrics_tpu_torch.parallel.deferred.SyncHandle`
         whose ``result()`` is the synced state; the buckets reduce copies, so
         the caller may keep updating ``state`` in place meanwhile."""
+        if group is None and self._class_placement() is not None:
+            if deferred:
+                raise ValueError("a class_sharded state has no deferred sync: call sync_state(state) without"
+                                 " `deferred=True`")
+            return self._synced_state(state=state)
         group = self.process_group if group is None else group
         if deferred:
             from metrics_tpu_torch.parallel.deferred import deferred_sync_state
@@ -687,6 +788,11 @@ class Metric(nn.Module, ABC):
         state = self._current_state() if state is None else state
         if dist_sync_fn is not None:
             return host_gather(state, self._reductions, dist_sync_fn, timer=timer)
+        if self._class_placement() is not None:
+            from metrics_tpu_torch.parallel.sync import class_block_sync
+
+            return class_block_sync(state, self._reductions, self._class_placement(), layouts=self._cat_layouts,
+                                    device=self.device, timer=timer)
         return all_reduce_state(
             state, self._reductions, group=self.process_group, layouts=self._cat_layouts, device=self.device,
             timer=timer,
@@ -707,6 +813,8 @@ class Metric(nn.Module, ABC):
         from metrics_tpu_torch.parallel.deferred import deferred_host_gather, deferred_sync_state
 
         state = self._current_state()
+        if self._class_placement() is not None:
+            raise ValueError("a class_sharded metric syncs its class blocks synchronously; `sync_lag` must be 0")
         if dist_sync_fn is not None:
             return deferred_host_gather(state, self._reductions, gather_fn=dist_sync_fn,
                                         watermark=self._epoch_watermark)
@@ -807,7 +915,8 @@ class Metric(nn.Module, ABC):
                 self._host_warnings()
             if self._computed is not None:
                 return self._computed
-            synced = self._to_sync and (self.dist_sync_fn is not None or dist_active())
+            # row-sharded states combine across ranks inside their sharded engine: no gather
+            synced = self._to_sync and (self.dist_sync_fn is not None or dist_active()) and not self._states_own_sync()
             cache = self._current_state()
             lag = self._resolve_sync_lag() if synced and self.sync_lag and self._in_forward else 0
             if lag:
@@ -871,7 +980,7 @@ class Metric(nn.Module, ABC):
 
     def __setstate__(self, state: dict) -> None:
         super().__setstate__(state)
-        for name, default in (("check_finite", None), ("sync_lag", 0), ("_state_dtype", None)):
+        for name, default in (("check_finite", None), ("sync_lag", 0), ("_state_dtype", None), ("_placement", None)):
             self.__dict__.setdefault(name, default)
         # handles never travel: drop any ring a foreign __dict__ carried in
         self.__dict__["_handle_ring"] = deque()
@@ -1000,6 +1109,8 @@ class Metric(nn.Module, ABC):
             )
         except _Unfingerprintable:
             return None
+        if self._placement is not None:  # members placed apart never share a delta or a sync
+            return (update_fn, config, schema, str(self.device), ("placement", id(self._placement)))
         return (update_fn, config, schema, str(self.device))
 
     # -------------------------------------------------------------- plumbing

@@ -859,6 +859,56 @@ def all_reduce_state(
 
 
 # -------------------------------------------------------------- the host plane
+def class_block_sync(
+    state: Dict[str, Any],
+    reductions: Dict[str, ReduceFx],
+    placement: Any,
+    layouts: Optional[Dict[str, tuple]] = None,
+    device: Optional[torch.device] = None,
+    guard: Optional[SyncGuard] = None,
+    timer: Optional[Callable[[float], None]] = None,
+) -> Dict[str, Any]:
+    """The sync of a ``class_sharded`` state (``parallel.placement``).
+
+    ``placement.group`` is a :class:`MeshHierarchy`: ``ici`` the mp group,
+    ``dcn`` the dp group. A reduce state the placement shards sends only this
+    rank's class block (block ``p`` of ``L`` along its leading axis, ``p`` the
+    rank's position in its slice) through :func:`all_reduce_state` over dp,
+    with the replicated states; then the synced blocks are reassembled over
+    mp, one ``all_gather_into_tensor`` a dtype. Ranks of one slice hold the
+    same data, so the dp sum is the sum over the world's distinct data.
+    Returns a new dict of full states; the input tensors are not modified."""
+    from metrics_tpu_torch.parallel.placement import ClassBlock, group_rank
+
+    h = placement.group
+    per = h.per_slice
+    position = group_rank(h) % per
+    sharded = [n for n, v in state.items()
+               if reductions[n] in _REDUCE_OPS and isinstance(placement(n, v), ClassBlock)]
+    blocks = dict(state)
+    for n in sharded:
+        blocks[n] = state[n].chunk(per, 0)[position]
+    out = all_reduce_state(blocks, reductions, group=h.dcn, layouts=layouts, device=device, guard=guard, timer=timer)
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for n in sharded:
+        by_dtype.setdefault(out[n].dtype, []).append(n)
+    for names in by_dtype.values():
+        flat = torch.cat([out[n].reshape(-1) for n in names])
+        if dist_active():
+            record_collective("all_gather", flat, crossing="ici", fanout=per)
+            every = flat.new_empty(per * flat.numel())
+            dist.all_gather_into_tensor(every, flat, group=h.ici)
+            every = every.view(per, flat.numel())
+        else:
+            every = flat.unsqueeze(0)
+        offset = 0
+        for n in names:
+            size = out[n].numel()
+            out[n] = every[:, offset: offset + size].reshape(state[n].shape)
+            offset += size
+    return out
+
+
 def packable_gather(fn: Callable) -> Callable:
     """Mark a ``gather_fn`` as value-based (``fn(x) -> [x of each rank]``), so
     that :func:`host_gather` packs every same-dtype tensor into one payload and

@@ -114,5 +114,10 @@ class _RankCorrelation(Metric):
             raise ValueError("collision_bound() needs approx='sketch' or 'qsketch'")
         return rank_collision_bound(self.joint.counts)
 
+    def _states_own_sync(self) -> bool:
+        from metrics_tpu_torch.parallel.sharded_dispatch import rank_corr_applicable
+
+        return rank_corr_applicable(self) is not None
+
     def _epoch(self) -> Tuple[Tensor, Tensor]:
         return as_values(self.preds_all), as_values(self.target_all)

@@ -3,6 +3,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.functional.regression.kendall import _kendall_kernel, _warn_if_quadratic
+from metrics_tpu_torch.parallel.sharded_dispatch import kendall_sharded
 from metrics_tpu_torch.parallel.sketch import kendall_from_joint
 from metrics_tpu_torch.regression._rank_corr import _RankCorrelation
 
@@ -37,6 +38,9 @@ class KendallRankCorrCoef(_RankCorrelation):
     def compute(self) -> Tensor:
         if self.approx is not None:
             return kendall_from_joint(self.joint.counts)
+        sharded = kendall_sharded(self)  # row-sharded epoch states: the contraction split over the ring
+        if sharded is not None:
+            return sharded
         preds, target = self._epoch()
         if preds.shape[0] < 2:
             return torch.tensor(float("nan"), device=self.device)

@@ -3,6 +3,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.functional.regression.spearman import _spearman_kernel
+from metrics_tpu_torch.parallel.sharded_dispatch import spearman_sharded
 from metrics_tpu_torch.parallel.sketch import spearman_from_joint
 from metrics_tpu_torch.regression._rank_corr import _RankCorrelation
 
@@ -35,6 +36,9 @@ class SpearmanCorrcoef(_RankCorrelation):
     def compute(self) -> Tensor:
         if self.approx is not None:
             return spearman_from_joint(self.joint.counts)
+        sharded = spearman_sharded(self)  # row-sharded epoch states: global midranks on the ring
+        if sharded is not None:
+            return sharded
         preds, target = self._epoch()
         if preds.shape[0] == 0:
             return torch.tensor(float("nan"), device=self.device)  # no data, as the functional

@@ -10,10 +10,12 @@ query of the epoch at once with the sort and segment operations of
 The policy keeps the reference's quirk: a query is empty when its *raw* target
 sum is 0, so ``-100`` sentinels make a query count as non-empty.
 
-Left out here: the row-sharded epoch engine the JAX package dispatches to
-(``retrieval_sharded``, ``regroup_capacity``), which waits for the sharded
-dispatch of the port, and the JAX package's jitted compute cache, which an eager
-port has no use for. ``_device_sums`` keeps its ``pad`` argument for that engine.
+Row-sharded epoch states (``parallel.placement.row_sharded``) compute through
+the ``all_to_all`` regroup of ``parallel/sharded_dispatch.retrieval_sharded``,
+which scores each rank's queries with ``_device_sums`` (its ``pad`` argument
+masks the regroup's ghost rows); ``regroup_capacity`` sets its bucket size.
+Left out here: the JAX package's jitted compute cache, which an eager port has
+no use for.
 """
 from abc import ABC, abstractmethod
 from typing import Any, Callable, Optional, Tuple, Union
@@ -78,6 +80,8 @@ class RetrievalMetric(Metric, ABC):
 
         self.query_without_relevant_docs = query_without_relevant_docs
         self.exclude = exclude
+        # rows a destination bucket of the sharded regroup holds (None: four times the balanced load)
+        self.regroup_capacity: Optional[int] = None
 
         self.add_state("idx", default=[], dist_reduce_fx=None, item_shape=(), item_dtype=torch.int32)
         self.add_state("preds", default=[], dist_reduce_fx=None, item_shape=(), item_dtype=torch.float32)
@@ -88,7 +92,7 @@ class RetrievalMetric(Metric, ABC):
     # members with the same ``capacity`` form ONE compute group: one append a
     # step, one gather at the epoch. A subclass that adds update config joins
     # the group key by itself (the exclusion form of ``Metric``).
-    _GROUP_COMPUTE_ONLY_ATTRS = ("k", "query_without_relevant_docs", "exclude")
+    _GROUP_COMPUTE_ONLY_ATTRS = ("k", "query_without_relevant_docs", "exclude", "regroup_capacity")
 
     def update(self, idx: Tensor, preds: Tensor, target: Tensor) -> None:
         if not (idx.shape == target.shape == preds.shape):
@@ -98,7 +102,17 @@ class RetrievalMetric(Metric, ABC):
         self._append("preds", preds.to(torch.float32).reshape(-1))
         self._append("target", target.to(torch.int32).reshape(-1))
 
+    def _states_own_sync(self) -> bool:
+        from metrics_tpu_torch.parallel.sharded_dispatch import retrieval_applicable
+
+        return retrieval_applicable(self) is not None
+
     def compute(self) -> Tensor:
+        from metrics_tpu_torch.parallel.sharded_dispatch import retrieval_sharded
+
+        sharded = retrieval_sharded(self)  # row-sharded epoch states: the all_to_all regroup
+        if sharded is not None:
+            return sharded
         idx = as_values(self.idx)
         preds = as_values(self.preds)
         target = as_values(self.target)

@@ -332,10 +332,6 @@ def test_window_postpones_checks_and_an_exception_skips_them():
 # ----------------------------------------------------------------- exports
 # JAX exports of ``metrics_tpu.parallel`` that the port does not have yet, with their reason
 _LEFT_OUT = {
-    # the sharded slice (placement policies and the sharded epoch engines)
-    "batch_sharded", "class_sharded", "row_sharded", "regroup_by_query", "sharded_auroc", "sharded_auroc_matrix",
-    "sharded_average_precision", "sharded_average_precision_matrix", "sharded_clf_curve_matrix", "sharded_kendall",
-    "sharded_rank", "sharded_retrieval_sums", "sharded_spearman",
     # the in-jit plane over a named mesh axis: the port has no mesh (its plane is all_reduce_state)
     "coalesced_sync_state", "gather_all_arrays", "mesh_hierarchy", "sync_state", "sync_value",
 }
@@ -350,7 +346,12 @@ def test_parallel_exports_what_jax_exports_but_the_left_out_names():
     assert missing == sorted(_LEFT_OUT & public), missing
     for name in ("MeshHierarchy", "hierarchical_mesh", "HostHierarchy", "host_hierarchy", "slice_leader_gather",
                  "SparseSyncPlane", "pack_touched", "touched_lane_bits", "unpack_touched_counts",
-                 "deferred_sparse_sync", "buffer_all_gather", "overflow_policy"):
+                 "deferred_sparse_sync", "buffer_all_gather", "overflow_policy",
+                 # the sharded slice: the placement policies and the sharded epoch engines
+                 "batch_sharded", "class_sharded", "row_sharded", "regroup_by_query", "sharded_auroc",
+                 "sharded_auroc_matrix", "sharded_average_precision", "sharded_average_precision_matrix",
+                 "sharded_clf_curve_matrix", "sharded_kendall", "sharded_rank", "sharded_retrieval_sums",
+                 "sharded_spearman"):
         assert hasattr(jpar, name) and hasattr(ppar, name), name
     for cls in (pt.Keyed, pt.HeavyHitters, pt.Windowed):
         assert callable(getattr(cls, "sparse_plane")) and callable(getattr(getattr(mt, cls.__name__), "sparse_plane"))
