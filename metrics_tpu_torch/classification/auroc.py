@@ -9,6 +9,8 @@ from torch import Tensor
 
 from metrics_tpu_torch.classification._curve_base import _CurveMetric
 from metrics_tpu_torch.functional.classification.auroc import _auroc_compute, _auroc_update
+from metrics_tpu_torch.observability.trace import TRACE
+from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.parallel.buffer import as_values
 from metrics_tpu_torch.parallel.qsketch import QSKETCH_CURVE_ALPHA
 from metrics_tpu_torch.parallel.sketch import auroc_error_bound, auroc_from_histogram
@@ -134,6 +136,14 @@ class AUROC(_CurveMetric):
         sharded = auroc_sharded(self)  # row-sharded epoch states: the exact ring
         if sharded is not None:
             return sharded
+        # the gather path materializes the epoch on every rank: the span makes
+        # that O(dataset) cost visible next to the sharded launches
+        if TRACE.enabled:
+            with _span("auroc.gather_compute", {"rows": len(self.preds) if isinstance(self.preds, list) else -1}):
+                return self._gather_compute()
+        return self._gather_compute()
+
+    def _gather_compute(self) -> Tensor:
         preds, target = as_values(self.preds), as_values(self.target)
         mode = self.mode
         if mode is None:  # a rank with no update of its own computes from the gathered states

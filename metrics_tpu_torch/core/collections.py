@@ -20,7 +20,11 @@ Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
   collection records which state tensors each member holds, and a member
   found holding others (written outside the collection) is diverged until
   the next collection-level ``reset``. Diverged members, singleton groups
-  and members with their own sync configuration sync on their own;
+  and members with their own sync configuration sync on their own. With
+  ``deferred_epoch_sync`` set, every shared group's sync is entered up front
+  on the deferred plane, in the synchronous plane's group order, and the
+  handles resolve in that order, so a group's member computes overlap the
+  collectives of the groups after it;
 * ``forward_batched``: a stack of batches, one collection ``forward`` a step
   (so one update a compute group a step), the per-step values stacked per
   key and each member's epoch value cached as ``Metric.forward_batched``
@@ -37,7 +41,14 @@ Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
 * ``epoch_watermark`` (the least member watermark) and ``guarded_update``;
   ``sync_lag >= 1`` members take no part in the shared per-step sync (their
   syncs are deferred on their own handle rings), and ``sync_state(...,
-  deferred=True)`` returns one handle that resolves to the nested state.
+  deferred=True)`` returns one handle that resolves to the nested state;
+* the JAX package's spans, each with its device-time fence:
+  ``collection.group_update`` / ``collection.step_sync`` (``{"group": rep}``),
+  ``collection.host_sync`` (``{"group", "shared"}``, and ``"deferred":
+  "yes"`` on the deferred epoch), ``collection.forward_batched`` and
+  ``collection.compute`` (``{"members": n}``). The port has no fused
+  collection step, so ``collection.fused_step`` has no site: ``forward`` is
+  the JAX package's eager grouped path.
 """
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Set, Tuple, Union
@@ -46,6 +57,11 @@ import numpy as np
 from torch import nn
 
 from metrics_tpu_torch.core.metric import Metric, PureMetric
+from metrics_tpu_torch.observability.counters import record_cache, record_deferred_depth
+from metrics_tpu_torch.observability.devtime import DEVTIME as _DEVTIME
+from metrics_tpu_torch.observability.devtime import fence as _fence
+from metrics_tpu_torch.observability.trace import TRACE
+from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.parallel.deferred import deferred_sync_state
 from metrics_tpu_torch.parallel.sync import all_reduce_state, dist_active
 from metrics_tpu_torch.utils.checks import shared_input_format
@@ -81,6 +97,11 @@ class MetricCollection(nn.ModuleDict):
     """
 
     _GROUP_MANIFEST_KEY = "_compute_group_manifest"
+
+    # The deferred grouped epoch sync (an attribute, as in the JAX package: set
+    # it on an instance). Off by default in the port, where the synchronous
+    # epoch plane is the one every earlier release ran.
+    deferred_epoch_sync: bool = False
 
     def __init__(
         self,
@@ -138,6 +159,7 @@ class MetricCollection(nn.ModuleDict):
     def _group_map(self) -> Dict[str, str]:
         """member name -> group representative name (identity map when off).
         The representative is the group's first member in collection order."""
+        record_cache("group", self._groups is not None)
         if self._groups is None:
             groups: Dict[str, str] = {}
             reps: Dict[Any, str] = {}
@@ -190,20 +212,34 @@ class MetricCollection(nn.ModuleDict):
         """The group's batch delta after ONE shared cross-rank sync."""
         if rep not in cache:
             m = self[member]
-            cache[rep] = m._synced_state(m.dist_sync_fn, state=delta)
+            if TRACE.enabled:
+                with _span("collection.step_sync", {"group": rep}):
+                    cache[rep] = m._synced_state(m.dist_sync_fn, state=delta)
+                    if _DEVTIME.enabled:
+                        _fence(cache[rep])
+            else:
+                cache[rep] = m._synced_state(m.dist_sync_fn, state=delta)
         return cache[rep]
 
     def _group_delta(self, rep: str, args: tuple, kwargs: dict) -> Dict[str, Any]:
         """ONE batch delta for a compute group, from its representative."""
         rm = self[rep]
         check_same_device(rm.device, *args, *kwargs.values())
+        if TRACE.enabled:
+            with _span("collection.group_update", {"group": rep}):
+                delta = rm._run_update_on_state(rm.init_state(), *args, **rm._filter_kwargs(**kwargs))
+                if _DEVTIME.enabled:
+                    _fence(delta)
+                return delta
         return rm._run_update_on_state(rm.init_state(), *args, **rm._filter_kwargs(**kwargs))
 
     # --------------------------------------------------------------- forward
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Forward every member with the compute-group delta shared; kwargs
         are filtered per member signature. Input formatting is memoized for
-        the step, so groups over the same ``(preds, target)`` format it once."""
+        the step, so groups over the same ``(preds, target)`` format it once.
+        This is the JAX package's eager grouped forward; the port has no fused
+        collection step, so no ``collection.fused_step`` span is recorded."""
         self._lockstep_check()
         with shared_input_format():
             out = self._forward_eager_body(*args, **kwargs)
@@ -250,14 +286,22 @@ class MetricCollection(nn.ModuleDict):
         if not data:
             raise ValueError("forward_batched needs at least one argument with a leading step axis")
         steps = int(data[0].shape[0])
-        per_step = [self.forward(*(a[i] for a in args), **{k: v[i] for k, v in kwargs.items()})
-                    for i in range(steps)]
+        if TRACE.enabled:
+            with _span("collection.forward_batched", {"members": len(self)}):
+                per_step = self._forward_steps(steps, args, kwargs)
+                if _DEVTIME.enabled:
+                    _fence(per_step)
+        else:
+            per_step = self._forward_steps(steps, args, kwargs)
         out: Dict[str, Any] = {}
         for k, m in self.items():
             key = self._set_prefix(k)
             out[key] = tree_stack([step[key] for step in per_step]) if m.compute_on_step else None
             m._cache_batched_epoch(args, kwargs)
         return out
+
+    def _forward_steps(self, steps: int, args: tuple, kwargs: dict) -> List[Dict[str, Any]]:
+        return [self.forward(*(a[i] for a in args), **{k: v[i] for k, v in kwargs.items()}) for i in range(steps)]
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Accumulate: one update per compute group, merged into every member."""
@@ -294,21 +338,86 @@ class MetricCollection(nn.ModuleDict):
         return True
 
     def compute(self) -> Dict[str, Any]:
+        if TRACE.enabled:
+            with _span("collection.compute", {"members": len(self)}):
+                out = self._compute_all()
+                if _DEVTIME.enabled:
+                    _fence(out)
+                return out
+        return self._compute_all()
+
+    def _compute_all(self) -> Dict[str, Any]:
         for m in self.values():  # entry order: in-flight deferred syncs resolve before the epoch sync
             m._drain_handle_ring()
         shared = self._grouped_epoch_sync()
         return {self._set_prefix(k): shared[k] if k in shared else m.compute() for k, m in self.items()}
 
-    def _grouped_epoch_sync(self) -> Dict[str, Any]:
+    def _grouped_epoch_sync(self, deferred: Optional[bool] = None) -> Dict[str, Any]:
         """ONE cross-rank sync per compute group: {member: computed value} for
         the members it served. A group shares its sync among the members that
         are in lockstep, have no cached value, and sync through the same
         ``dist_sync_fn`` and ``process_group`` as the group's representative;
         at least two must. Each computes from the synced state and gets its
-        own state back."""
+        own state back.
+
+        Deferred form (``deferred``, default :attr:`deferred_epoch_sync`):
+        every group's sync is entered first, in group order, through
+        ``Metric._dispatch_deferred`` (the host plane's single FIFO worker for
+        a ``dist_sync_fn``, else the bucketed plane's collectives entered on
+        this thread), then the handles resolve in the same order. The
+        collectives and their order are the synchronous plane's; members this
+        plane does not serve sync after every handle has resolved, where the
+        synchronous plane syncs them. ``class_sharded`` groups sync their
+        class blocks synchronously, so a collection holding one takes the
+        synchronous plane for every group."""
         self._lockstep_check()
-        active = dist_active()
+        plans = self._epoch_plans()
+        if not plans:
+            return {}
+        deferred = self.deferred_epoch_sync if deferred is None else deferred
+        handles = None
+        if deferred and all(self[share[0]]._class_placement() is None for _rep, share in plans):
+            handles = [self[share[0]]._dispatch_deferred(self[rep].dist_sync_fn,
+                                                         {"group": rep} if TRACE.enabled else None,
+                                                         label="epoch_gather")
+                       for rep, share in plans]
+            record_deferred_depth(f"{type(self).__name__}.epoch", len(handles))
         out: Dict[str, Any] = {}
+        for i, (rep, share) in enumerate(plans):
+            if TRACE.enabled:
+                attrs = {"group": rep, "shared": len(share)}
+                if handles is not None:
+                    attrs["deferred"] = "yes"
+                with _span("collection.host_sync", attrs):
+                    synced = self._epoch_synced(rep, share, handles, i)
+                    if _DEVTIME.enabled:
+                        _fence(synced)
+            else:
+                synced = self._epoch_synced(rep, share, handles, i)
+            for k in share:
+                m = self[k]
+                cache = m._current_state()
+                m._set_state(synced)
+                m._to_sync = False
+                try:
+                    out[k] = m.compute()
+                finally:
+                    m._set_state(cache)
+                    m._to_sync = True
+        if handles is not None:
+            record_deferred_depth(f"{type(self).__name__}.epoch", 0)
+        return out
+
+    def _epoch_synced(self, rep: str, share: List[str], handles: Optional[list], i: int) -> Dict[str, Any]:
+        if handles is not None:
+            return handles[i].result()
+        return self[share[0]]._synced_state(self[rep].dist_sync_fn)
+
+    def _epoch_plans(self) -> List[Tuple[str, List[str]]]:
+        """(representative, sharing members) of every group the epoch sync
+        shares, in group order."""
+        active = dist_active()
+        plans: List[Tuple[str, List[str]]] = []
         for rep, members in self.compute_groups.items():
             rep_m = self[rep]
             if len(members) < 2 or (rep_m.dist_sync_fn is None and not active) or rep_m._states_own_sync():
@@ -323,20 +432,9 @@ class MetricCollection(nn.ModuleDict):
                 and self[k].process_group is rep_m.process_group
                 and not self[k]._states_own_sync()
             ]
-            if len(share) < 2:
-                continue
-            synced = self[share[0]]._synced_state(rep_m.dist_sync_fn)
-            for k in share:
-                m = self[k]
-                cache = m._current_state()
-                m._set_state(synced)
-                m._to_sync = False
-                try:
-                    out[k] = m.compute()
-                finally:
-                    m._set_state(cache)
-                    m._to_sync = True
-        return out
+            if len(share) >= 2:
+                plans.append((rep, share))
+        return plans
 
     def device_put(self, device_or_placement: Any) -> "MetricCollection":
         """Place every member's states (``Metric.device_put``): a device, or a

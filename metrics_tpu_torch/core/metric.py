@@ -81,9 +81,21 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
-from metrics_tpu_torch.observability.counters import record_deferred_depth, record_fault
+from metrics_tpu_torch.observability.counters import COUNTERS as _COUNTERS
+from metrics_tpu_torch.observability.counters import (
+    record_collective,
+    record_deferred_depth,
+    record_fault,
+    record_state_bytes,
+    state_nbytes,
+)
+from metrics_tpu_torch.observability.devtime import DEVTIME as _DEVTIME
+from metrics_tpu_torch.observability.devtime import fence as _fence
+from metrics_tpu_torch.observability.trace import TRACE
+from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_append, buffer_init
 from metrics_tpu_torch.parallel.cms import CMSSpec, cms_init
+from metrics_tpu_torch.parallel.placement import MeshHierarchy
 from metrics_tpu_torch.parallel.qsketch import QSketchSpec, qsketch_init
 from metrics_tpu_torch.parallel.sketch import SketchSpec, is_sketch, sketch_init
 from metrics_tpu_torch.parallel.slab import SlabSpec, slab_init, slab_sync_reduce
@@ -96,6 +108,7 @@ from metrics_tpu_torch.parallel.sync import (
     is_mergeable,
     merge_values,
 )
+from metrics_tpu_torch.utils import debug
 from metrics_tpu_torch.utils.data import tree_stack
 from metrics_tpu_torch.utils.device import check_same_device, resolve_device
 from metrics_tpu_torch.utils.exceptions import StateCorruptionError
@@ -114,8 +127,8 @@ _LIVE_ATTRS = ("_handle_ring", "_lag_controller")
 # (the group key's schema covers those)
 _NON_CONFIG_ATTRS = frozenset(vars(nn.Module())) | frozenset(_WRAPPER_ATTRS) | frozenset({
     "_update_signature", "_computed", "_forward_cache", "_count_bound", "_epoch_watermark",
-    "_to_sync", "_in_forward", "compute_on_step", "dist_sync_on_step", "process_group", "dist_sync_fn",
-    "_defaults", "_persistent", "_reductions", "_cat_layouts", "device",
+    "_to_sync", "_in_forward", "_sync_count", "compute_on_step", "dist_sync_on_step", "process_group",
+    "dist_sync_fn", "_defaults", "_persistent", "_reductions", "_cat_layouts", "device",
     "check_finite", "sync_lag", "_handle_ring", "_lag_controller", "_state_dtype", "_placement",
 })
 
@@ -350,6 +363,7 @@ class Metric(nn.Module, ABC):
         self._placement: Any = None  # the last device_put target, applied to every fresh state
         self._to_sync = True
         self._in_forward = False
+        self._sync_count = 0  # synced computes entered (the debug sync-count check's sequence number)
         self._computed = None
         self._forward_cache = None
         # host-side bookkeeping persisted by state_dict, as in the JAX package:
@@ -637,6 +651,13 @@ class Metric(nn.Module, ABC):
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate this batch and (if ``compute_on_step``) return its batch value."""
+        if TRACE.enabled:
+            with _span("metric.forward", {"metric": type(self).__name__}):
+                forward = self._forward_fused if self._fusable else self._forward_reference
+                out = forward(*args, **kwargs)
+                if _DEVTIME.enabled:  # the phase fence: the forward's device tail lands here
+                    _fence((out, self._current_state()))
+                return out
         if self._fusable:
             return self._forward_fused(*args, **kwargs)
         return self._forward_reference(*args, **kwargs)
@@ -804,12 +825,24 @@ class Metric(nn.Module, ABC):
         ``check_finite`` policy (``quarantine`` keeps the local state when the
         synced one is poisoned; the sync never writes the local tensors)."""
         local = self._current_state()
+        if TRACE.enabled:
+            with _span("metric.sync_state", {"metric": type(self).__name__}) as sp:
+                synced = self._synced_state(dist_sync_fn, timer=timer)
+                if _DEVTIME.enabled:
+                    _fence(synced)
+                self._set_state(synced)
+                self._guard_state_integrity("sync", local)
+                self._note_state_bytes(sp)
+            return
         self._set_state(self._synced_state(dist_sync_fn, timer=timer))
         self._guard_state_integrity("sync", local)
+        self._note_state_bytes()
 
-    def _dispatch_deferred(self, dist_sync_fn: Optional[Callable]) -> Any:
+    def _dispatch_deferred(self, dist_sync_fn: Optional[Callable], attrs: Optional[Dict[str, Any]] = None,
+                           label: str = "host_gather") -> Any:
         """Enter this step's sync without waiting: a handle of the host plane
-        (``dist_sync_fn``) or of the bucketed plane."""
+        (``dist_sync_fn``, labelled ``label``) or of the bucketed plane.
+        ``attrs`` go onto the ``deferred.dispatch`` span."""
         from metrics_tpu_torch.parallel.deferred import deferred_host_gather, deferred_sync_state
 
         state = self._current_state()
@@ -817,9 +850,10 @@ class Metric(nn.Module, ABC):
             raise ValueError("a class_sharded metric syncs its class blocks synchronously; `sync_lag` must be 0")
         if dist_sync_fn is not None:
             return deferred_host_gather(state, self._reductions, gather_fn=dist_sync_fn,
-                                        watermark=self._epoch_watermark)
+                                        watermark=self._epoch_watermark, label=label, attrs=attrs)
         return deferred_sync_state(state, self._reductions, group=self.process_group,
-                                   watermark=self._epoch_watermark, layouts=self._cat_layouts, device=self.device)
+                                   watermark=self._epoch_watermark, layouts=self._cat_layouts, device=self.device,
+                                   attrs=attrs)
 
     # ------------------------------------------------- the lag-k handle ring
     def _resolve_sync_lag(self) -> int:
@@ -847,7 +881,9 @@ class Metric(nn.Module, ABC):
         and resolve the oldest handles until the ring is back at ``lag``.
         Returns the newest resolved view, or ``None`` while the ring fills."""
         ring = self._handle_ring
-        ring.append(self._dispatch_deferred(dist_sync_fn))
+        # the chosen depth rides the dispatch span: a trace shows why each
+        # dispatch happened at the depth it did
+        ring.append(self._dispatch_deferred(dist_sync_fn, {"lag_controller": lag} if TRACE.enabled else None))
         view = None
         while len(ring) > lag:
             oldest = ring.popleft()
@@ -865,11 +901,57 @@ class Metric(nn.Module, ABC):
             check_same_device(self.device, *args, *kwargs.values())
             self._note_rows(args, kwargs)
             revert_to = self._pre_update_snapshot()
+            if TRACE.enabled:
+                with _span("metric.update", {"metric": type(self).__name__}) as sp:
+                    out = update(*args, **kwargs)
+                    if _DEVTIME.enabled:  # the phase fence on the written states
+                        _fence(self._current_state())
+                    self._guard_state_integrity("update", revert_to)
+                    self._note_state_bytes(sp)
+                    return out
             out = update(*args, **kwargs)
             self._guard_state_integrity("update", revert_to)
+            self._note_state_bytes()
             return out
 
         return wrapped_func
+
+    def _note_state_bytes(self, span: Any = None) -> None:
+        """Record this metric's state footprint: the ``state_bytes`` gauge of
+        the counters snapshot, and an attr of the enclosing update / sync span
+        (``export.summarize``'s ``state_bytes`` column). Read from the
+        tensors' metadata; disabled observability pays one attribute check."""
+        if not _COUNTERS.enabled and span is None:
+            return
+        nbytes = state_nbytes(self._current_state())
+        # wrappers label their gauge (``Keyed(AUROC)``, not a bare ``Keyed``)
+        record_state_bytes(getattr(self, "_metric_label", type(self).__name__), nbytes)
+        if span is not None and getattr(span, "attrs", None) is not None:
+            span.attrs["state_bytes"] = nbytes
+
+    def _check_sync_count(self, dist_sync_fn: Optional[Callable]) -> None:
+        """The debug sync-count check (``utils/debug.py``): gather this
+        metric's synced-compute sequence number from every rank (one small
+        ``all_gather``, or ``dist_sync_fn``) and raise when they disagree."""
+        value = torch.tensor([self._sync_count], dtype=torch.int64, device=self.device)
+        if dist_sync_fn is not None:
+            counts = [int(c) for c in dist_sync_fn(value)]
+        else:
+            import torch.distributed as dist
+
+            group = self.process_group if not isinstance(self.process_group, MeshHierarchy) else None
+            world = dist.get_world_size(group)
+            outs = [torch.empty_like(value) for _ in range(world)]
+            record_collective("all_gather", value, fanout=world)
+            dist.all_gather(outs, value, group=group)
+            counts = torch.cat(outs).tolist()
+        if len(set(counts)) > 1:
+            raise RuntimeError(
+                f"{self.__class__.__name__}: processes disagree on the synced-compute"
+                f" sequence number ({counts}). Some rank called a synced compute() a"
+                " different number of times — this pairs collectives wrongly and"
+                " eventually deadlocks."
+            )
 
     # -------------------------------------------------- state-integrity guard
     def _integrity_state(self) -> State:
@@ -911,6 +993,15 @@ class Metric(nn.Module, ABC):
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if TRACE.enabled:
+                with _span("metric.compute", {"metric": type(self).__name__}):
+                    out = compute_body(*args, **kwargs)
+                    if _DEVTIME.enabled:
+                        _fence(out)
+                    return out
+            return compute_body(*args, **kwargs)
+
+        def compute_body(*args: Any, **kwargs: Any) -> Any:
             if not self._in_forward:  # the epoch compute, not a step's batch value
                 self._host_warnings()
             if self._computed is not None:
@@ -920,14 +1011,21 @@ class Metric(nn.Module, ABC):
             cache = self._current_state()
             lag = self._resolve_sync_lag() if synced and self.sync_lag and self._in_forward else 0
             if lag:
+                # the debug sync-count check is skipped here: its own gather
+                # would jump ahead of the deferred syncs in flight
                 view = self._lagged_sync(self.dist_sync_fn, lag)
+                self._sync_count += 1
                 synced = view is not None  # the warm-up steps read the local delta
                 if synced:
                     self._set_state(view)
                     self._guard_state_integrity("sync", cache)
+                    self._note_state_bytes()
             elif synced:
                 # entry order: a synchronous sync never overtakes in-flight deferred ones
                 self._drain_handle_ring()
+                if debug.sync_count_check_enabled():
+                    self._check_sync_count(self.dist_sync_fn)
+                self._sync_count += 1
                 auto = self._lag_controller is not None and self.sync_lag == "auto" and self._in_forward
                 self._sync_dist(self.dist_sync_fn, timer=self._lag_controller.observe if auto else None)
             try:
@@ -980,7 +1078,8 @@ class Metric(nn.Module, ABC):
 
     def __setstate__(self, state: dict) -> None:
         super().__setstate__(state)
-        for name, default in (("check_finite", None), ("sync_lag", 0), ("_state_dtype", None), ("_placement", None)):
+        for name, default in (("check_finite", None), ("sync_lag", 0), ("_state_dtype", None), ("_placement", None),
+                              ("_sync_count", 0)):
             self.__dict__.setdefault(name, default)
         # handles never travel: drop any ring a foreign __dict__ carried in
         self.__dict__["_handle_ring"] = deque()

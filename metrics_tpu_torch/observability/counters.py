@@ -66,12 +66,33 @@ planes (``parallel/sync.py``, ``parallel/buffer.py``, ``parallel/sparse.py``,
   metric's lag-k handle ring, refreshed by every deferring forward while
   counting is enabled.
 
-The cache and serving counters of the JAX package's registry are not ported
-yet; ``snapshot()`` carries the keys above, with the JAX package's names and
-layouts. Counting is off by default; all mutation happens under one lock.
+- **state_bytes**: a per-metric gauge ``{metric label: bytes}`` of the
+  current state footprint (:func:`state_nbytes`), refreshed after every
+  update and sync while counting is enabled (``Metric._note_state_bytes``).
+- **lifecycle** / **watermark_lag** / **publish_staleness** / **selfmeter**:
+  the health plane's gauges, fed by ``observability/lifecycle.py`` as a
+  window's ledger reaches ``published`` (``publish_staleness`` is derived at
+  snapshot time from the last publish stamp, so it keeps aging between
+  publishes), while counting is enabled.
+- **service_health** / **retention** / **fleet_shards**: the serving
+  runtime's gauges, with the JAX package's layouts. ``service_health``
+  records even while counting is disabled, as there.
+- **Cache traffic** as ``{"hits", "misses"}`` pairs: ``group_cache`` counts
+  the compute-group map's lookups (``MetricCollection._group_map``: a miss
+  builds the map). ``step_cache``, ``fused_step_cache``, ``launch_cache`` and
+  ``ingest_program_cache`` name the JAX package's jitted-program caches; the
+  port compiles no program (ROADMAP section 1, left out for good), so they
+  stay 0, and stay in every snapshot so both packages' snapshots carry the
+  same keys.
+
+``snapshot()`` carries every key of the JAX package's snapshot, with its names
+and layouts. Counting is off by default; all mutation happens under one lock.
 """
 import threading
+import time
 from typing import Any, Dict, Optional
+
+import torch
 
 __all__ = [
     "COUNTERS",
@@ -82,24 +103,34 @@ __all__ = [
     "disable",
     "enable",
     "is_enabled",
+    "record_cache",
     "record_collective",
     "record_deferred",
     "record_deferred_depth",
     "record_evicted_mass",
     "record_fault",
+    "record_fleet_shards",
     "record_gather_skip",
     "record_heavy_hitters",
+    "record_lifecycle",
+    "record_publish_stamp",
+    "record_retention",
+    "record_selfmeter",
+    "record_service_health",
     "record_slab_dropped",
     "record_slab_slots",
     "record_sparse_fallback",
     "record_sparse_round",
     "record_sparse_skip",
+    "record_state_bytes",
     "record_states_synced",
     "record_watermark_agreement",
+    "record_watermark_lag",
     "record_wm_exchange",
     "record_wm_straggler",
     "reset",
     "snapshot",
+    "state_nbytes",
 ]
 
 # fault-counter kinds with a stable place in every snapshot (zeros included)
@@ -129,6 +160,10 @@ SPARSE_KINDS = (
 KINDS = ("psum", "pmean", "pmin", "pmax", "all_gather", "coalesced_gather", "ppermute", "all_to_all",
          "process_allgather")
 
+# the cache pairs of every snapshot, the JAX package's names; only "group" has
+# a cache in the port (the others name jitted-program caches, and stay 0)
+CACHES = ("group", "step", "launch", "fused_step", "ingest_program")
+
 
 class CollectiveCounters:
     """Process-wide counters; ``enabled`` is the gate of the gauges."""
@@ -136,7 +171,8 @@ class CollectiveCounters:
     __slots__ = ("enabled", "calls_by_kind", "bytes_by_kind_dtype", "calls_by_crossing", "bytes_by_crossing",
                  "states_synced", "slab_dropped_samples", "evicted_mass_dropped", "slab_slots", "heavy_hitters",
                  "wm_stragglers", "wm_exchange_calls", "watermark_agreement", "faults", "gather_skips",
-                 "deferred", "deferred_depth", "sparse", "_lock")
+                 "deferred", "deferred_depth", "sparse", "caches", "fleet_shards", "state_bytes", "service_health",
+                 "retention", "lifecycle", "watermark_lag", "publish_stamp_ns", "selfmeter", "_lock")
 
     def __init__(self) -> None:
         self.enabled = False
@@ -161,6 +197,15 @@ class CollectiveCounters:
         self.deferred: Dict[str, int] = {k: 0 for k in DEFERRED_KINDS}
         self.deferred_depth: Dict[str, Dict[str, int]] = {}
         self.sparse: Dict[str, int] = {k: 0 for k in SPARSE_KINDS}
+        self.caches: Dict[str, Dict[str, int]] = {c: {"hits": 0, "misses": 0} for c in CACHES}
+        self.fleet_shards: Dict[str, Dict[str, Dict[str, Any]]] = {}  # fleet label -> shard gauges
+        self.state_bytes: Dict[str, int] = {}  # metric label -> latest bytes
+        self.service_health: Dict[str, Dict[str, Any]] = {}
+        self.retention: Dict[str, Dict[str, int]] = {}
+        self.lifecycle: Dict[str, Dict[str, Any]] = {}  # label -> window-ledger gauges
+        self.watermark_lag: Dict[str, Dict[str, Any]] = {}  # label -> {"lag_s", "degraded"}
+        self.publish_stamp_ns: Dict[str, int] = {}  # label -> last publish (perf_counter_ns)
+        self.selfmeter: Dict[str, Dict[str, Dict[str, float]]] = {}  # label -> stage -> summary
 
     def record_collective(self, kind: str, value: Any, crossing: str = "world", fanout: Optional[int] = None) -> None:
         """Count one collective of ``kind`` whose local payload is ``value`` (a
@@ -279,8 +324,66 @@ class CollectiveCounters:
                 "tail_bound": float(tail_bound),
             }
 
+    def record_cache(self, which: str, hit: bool) -> None:
+        """One lookup of cache ``which`` (one of :data:`CACHES`)."""
+        if which not in self.caches:
+            raise ValueError(f"unknown cache {which!r}; expected one of {CACHES}")
+        with self._lock:
+            self.caches[which]["hits" if hit else "misses"] += 1
+
+    def record_service_health(self, label: str, state: str, shed_events: int, published: int,
+                              queue_depth: int) -> None:
+        """Refresh one serving loop's health gauges (latest value wins)."""
+        with self._lock:
+            self.service_health[label] = {"state": str(state), "shed_events": int(shed_events),
+                                          "published": int(published), "queue_depth": int(queue_depth)}
+
+    def record_retention(self, label: str, windows_banked: int, rollups: int, resident_bytes: int,
+                         queries: int) -> None:
+        """Refresh one retention store's gauges (latest value wins)."""
+        with self._lock:
+            self.retention[label] = {"windows_banked": int(windows_banked), "rollups": int(rollups),
+                                     "resident_bytes": int(resident_bytes), "queries": int(queries)}
+
+    def record_lifecycle(self, label: str, windows_stamped: int, open_windows: int, e2e_ms: float) -> None:
+        """Refresh one label's window-lifecycle gauges (latest value wins)."""
+        if windows_stamped < 0 or open_windows < 0:
+            raise ValueError(
+                f"lifecycle window counts must be >= 0, got ({windows_stamped}, {open_windows})"
+            )
+        with self._lock:
+            self.lifecycle[label] = {"windows_stamped": int(windows_stamped), "open_windows": int(open_windows),
+                                     "e2e_ms": float(e2e_ms)}
+
+    def record_watermark_lag(self, label: str, lag_s: float, degraded: bool) -> None:
+        """Refresh one label's watermark-lag gauge (latest value wins; a
+        negative lag is surfaced, not clamped)."""
+        with self._lock:
+            self.watermark_lag[label] = {"lag_s": float(lag_s), "degraded": bool(degraded)}
+
+    def record_publish_stamp(self, label: str, ns: int) -> None:
+        """Refresh one label's last-publish stamp (``perf_counter_ns``)."""
+        with self._lock:
+            self.publish_stamp_ns[label] = int(ns)
+
+    def record_selfmeter(self, label: str, stage: str, summary: Dict[str, float]) -> None:
+        """Refresh one (label, stage) latency-sketch summary (latest wins)."""
+        with self._lock:
+            self.selfmeter.setdefault(label, {})[stage] = dict(summary)
+
+    def record_fleet_shards(self, label: str, shards: Dict[Any, Dict[str, Any]]) -> None:
+        """Refresh one serving fleet's per-shard gauges (latest value wins)."""
+        with self._lock:
+            self.fleet_shards[label] = {str(k): dict(v) for k, v in shards.items()}
+
+    def record_state_bytes(self, metric: str, nbytes: int) -> None:
+        """Refresh the per-metric state-footprint gauge (latest value wins)."""
+        with self._lock:
+            self.state_bytes[metric] = int(nbytes)
+
     def snapshot(self) -> Dict[str, Any]:
         """A JSON-ready copy of every counter."""
+        now_ns = time.perf_counter_ns()  # staleness ages on the stamp clock
         with self._lock:
             calls = dict(self.calls_by_kind)
             by_bucket = dict(self.bytes_by_kind_dtype)
@@ -304,6 +407,18 @@ class CollectiveCounters:
                 "gather_skips": self.gather_skips,
                 "deferred": dict(self.deferred),
                 "deferred_depth": {k: dict(v) for k, v in sorted(self.deferred_depth.items())},
+                "state_bytes": dict(sorted(self.state_bytes.items())),
+                "fleet_shards": {k: {s_: dict(g) for s_, g in sorted(v.items())}
+                                 for k, v in sorted(self.fleet_shards.items())},
+                "service_health": {k: dict(v) for k, v in sorted(self.service_health.items())},
+                "retention": {k: dict(v) for k, v in sorted(self.retention.items())},
+                "lifecycle": {k: dict(v) for k, v in sorted(self.lifecycle.items())},
+                "watermark_lag": {k: dict(v) for k, v in sorted(self.watermark_lag.items())},
+                "publish_staleness": {k: {"staleness_s": max(now_ns - ns, 0) / 1e9}
+                                      for k, ns in sorted(self.publish_stamp_ns.items())},
+                "selfmeter": {k: {s_: dict(row) for s_, row in sorted(v.items())}
+                              for k, v in sorted(self.selfmeter.items())},
+                **{f"{c}_cache": dict(self.caches[c]) for c in CACHES},
             }
 
     def reset(self) -> None:
@@ -396,6 +511,68 @@ def record_deferred(kind: str, n: int = 1) -> None:
 def record_deferred_depth(label: str, current: int) -> None:
     if COUNTERS.enabled:
         COUNTERS.record_deferred_depth(label, current)
+
+
+def record_cache(which: str, hit: bool) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_cache(which, hit)
+
+
+# service health records unconditionally, as in the JAX package: a gauge
+# write is one dict store, and health must not vanish because counting is off
+def record_service_health(label: str, state: str, shed_events: int = 0, published: int = 0,
+                          queue_depth: int = 0) -> None:
+    COUNTERS.record_service_health(label, state, shed_events, published, queue_depth)
+
+
+def record_state_bytes(metric: str, nbytes: int) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_state_bytes(metric, nbytes)
+
+
+def record_fleet_shards(label: str, shards: Dict[Any, Dict[str, Any]]) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_fleet_shards(label, shards)
+
+
+# the health plane's gauges (observability/lifecycle.py) share the enabled gate
+def record_lifecycle(label: str, windows_stamped: int, open_windows: int, e2e_ms: float) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_lifecycle(label, windows_stamped, open_windows, e2e_ms)
+
+
+def record_watermark_lag(label: str, lag_s: float, degraded: bool) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_watermark_lag(label, lag_s, degraded)
+
+
+def record_publish_stamp(label: str, ns: int) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_publish_stamp(label, ns)
+
+
+def record_selfmeter(label: str, stage: str, summary: Dict[str, float]) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_selfmeter(label, stage, summary)
+
+
+def record_retention(label: str, windows_banked: int, rollups: int, resident_bytes: int, queries: int) -> None:
+    if COUNTERS.enabled:
+        COUNTERS.record_retention(label, windows_banked, rollups, resident_bytes, queries)
+
+
+def state_nbytes(state: Any) -> int:
+    """Byte footprint of one state (a dict, list, tuple, buffer or sketch of
+    tensors): ``numel * element_size`` of every tensor in it, read from the
+    tensors' metadata (no device work). A buffer counts its data and count, a
+    sketch its counts, a list state each element."""
+    if isinstance(state, torch.Tensor):
+        return int(state.numel()) * int(state.element_size())
+    if isinstance(state, dict):
+        return sum(state_nbytes(v) for v in state.values())
+    if isinstance(state, (list, tuple)):  # NamedTuples (buffers, sketches) included
+        return sum(state_nbytes(v) for v in state)
+    return 0
 
 
 def enable() -> None:

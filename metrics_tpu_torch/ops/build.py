@@ -6,6 +6,10 @@ Libraries go to ``metrics_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the source and flags so an edited source never loads a
 stale build. Nothing here runs at import time; where ``nvcc`` is missing the
 build raises.
+
+``LOAD_HOOK`` is the loader's counting hook: when set (by
+``observability/compilemon.py``), every library a process loads reports
+``(name, hit, seconds)``, ``hit`` when the library was found built.
 """
 import ctypes
 import hashlib
@@ -14,13 +18,17 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+# (name, found built, seconds to make it ready) for every library loaded; None: no counting
+LOAD_HOOK: Optional[Callable[[str, bool, float], None]] = None
 
 
 class KernelLibraries:
@@ -34,15 +42,24 @@ class KernelLibraries:
     def load(self, name: str, force: bool = False) -> ctypes.CDLL:
         """The loaded library for ``csrc/<name>.cu``; ``force`` rebuilds it from source."""
         if force or name not in self.libs:
-            self.libs[name] = ctypes.CDLL(str(self.build(name, force)))
+            t0 = time.perf_counter()
+            path, built = self._build(name, force)
+            self.libs[name] = ctypes.CDLL(str(path))
+            hook = LOAD_HOOK
+            if hook is not None:
+                hook(name, not built, time.perf_counter() - t0)
         return self.libs[name]
 
     def build(self, name: str, force: bool = False) -> Path:
+        return self._build(name, force)[0]
+
+    def _build(self, name: str, force: bool = False) -> Tuple[Path, bool]:
+        """The library's path, and whether ``nvcc`` ran for it now."""
         src = CSRC_DIR / f"{name}.cu"
         digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if out.exists() and not force:
-            return out
+            return out, False
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -53,7 +70,7 @@ class KernelLibraries:
         os.replace(tmp, out)  # atomic: a concurrent process never loads a half-written library
         self.build_seconds[name] = time.perf_counter() - t0
         self.build_log[name] = proc.stdout + proc.stderr
-        return out
+        return out, True
 
 
 def nvcc_path() -> str:

@@ -31,9 +31,11 @@ what a mutable, eagerly executed port changes:
   :data:`MAX_SYNC_LAG` handles; :class:`LagController` chooses ``k`` from the
   measured blocking waits for ``sync_lag="auto"``.
 
-The ``deferred`` counters record dispatches, fences and completions. The
-``deferred.dispatch`` / ``.fence`` / ``.complete`` spans of the JAX package
-wait for the port's tracing plane. Its compiled-program cache
+The ``deferred`` counters record dispatches, fences and completions, and the
+spans ``deferred.dispatch`` (on the caller's thread, with ``plane`` and the
+caller's ``attrs``), ``deferred.fence`` (``result()``'s wait, with ``plane``
+and ``label``) and ``deferred.complete`` (the host plane's task, on the
+worker thread's own span stack) time them. The JAX package's compiled-program cache
 (``clear_program_cache``, ``_sync_program``) has no counterpart: the port
 compiles nothing.
 - **Deferred sparse rounds run on the worker.** A sparse round reads its union
@@ -53,6 +55,8 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.observability.counters import record_deferred
+from metrics_tpu_torch.observability.trace import TRACE
+from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer
 from metrics_tpu_torch.parallel.sketch import is_sketch
 from metrics_tpu_torch.parallel.sync import (
@@ -256,13 +260,15 @@ class SyncHandle:
                 if self._error is not None:
                     raise self._error
                 return self._result
+            attrs = {"plane": self._kind, "label": self.label} if TRACE.enabled else None
             try:
-                if self._kind == "host":
-                    out = self._payload.result(timeout)
-                else:
-                    out = self._payload.finish()
-                    _synchronize(out)
-                    record_deferred("completed")  # a device completion is its fence
+                with _span("deferred.fence", attrs):
+                    if self._kind == "host":
+                        out = self._payload.result(timeout)
+                    else:
+                        out = self._payload.finish()
+                        _synchronize(out)
+                        record_deferred("completed")  # a device completion is its fence
                 if self._finish is not None:
                     out = self._finish(out)
             except BaseException as err:
@@ -316,6 +322,7 @@ def deferred_host_gather(
     label: str = "host_gather",
     finish: Optional[Callable[[Dict[str, Any]], Any]] = None,
     group: Optional[Any] = None,
+    attrs: Optional[Dict[str, Any]] = None,
 ) -> SyncHandle:
     """Run a host-plane sync in the background; returns a ``"host"`` :class:`SyncHandle`.
 
@@ -334,28 +341,38 @@ def deferred_host_gather(
 
     ``finish`` runs on the result on the worker, so its side effect (the
     watermark agreement's fold) lands even if nobody fences the handle; a
-    ``finish`` that raises surfaces from ``result()``. The JAX package's
-    ``attrs`` (span attributes) wait for the port's tracing plane.
+    ``finish`` that raises surfaces from ``result()``. ``attrs`` are extra
+    attributes of the ``deferred.dispatch`` span (the lag-k ring stamps its
+    depth there as ``lag_controller``, the deferred epoch sync its
+    ``group``).
     """
     guard = guard if guard is not None else current_sync_guard()
-    pending: Optional[StateSync] = None
-    if gather_fn is None and dist_active():
-        # the bucketed plane copies each bucket as it enters it, here
-        pending = dispatch_state_sync(state, reductions, group=group, guard=guard, deferred=True, reissue=False)
-    else:
-        snapshot = snapshot_state(state)  # the worker reads it later
-
-    def task() -> Any:
-        if pending is not None:
-            out = pending.finish()
+    span_attrs = None
+    if TRACE.enabled:
+        span_attrs = {"plane": label}
+        if attrs:
+            span_attrs.update(attrs)
+    with _span("deferred.dispatch", span_attrs):
+        pending: Optional[StateSync] = None
+        if gather_fn is None and dist_active():
+            # the bucketed plane copies each bucket as it enters it, here
+            pending = dispatch_state_sync(state, reductions, group=group, guard=guard, deferred=True, reissue=False)
         else:
-            out = host_gather(snapshot, reductions, gather_fn or _own_rank, guard=guard, reissue=False)
-        if finish is not None:
-            out = finish(out)
-        record_deferred("completed")
-        return out
+            snapshot = snapshot_state(state)  # the worker reads it later
 
-    future = _HOST_PLANE.submit(task)
+        def task() -> Any:
+            task_attrs = {"plane": label} if TRACE.enabled else None
+            with _span("deferred.complete", task_attrs):
+                if pending is not None:
+                    out = pending.finish()
+                else:
+                    out = host_gather(snapshot, reductions, gather_fn or _own_rank, guard=guard, reissue=False)
+                if finish is not None:
+                    out = finish(out)
+            record_deferred("completed")
+            return out
+
+        future = _HOST_PLANE.submit(task)
     record_deferred("dispatched")
     return SyncHandle("host", future, watermark=watermark, label=label)
 
@@ -392,6 +409,7 @@ def deferred_sync_state(
     guard: Optional[SyncGuard] = None,
     layouts: Optional[Dict[Any, tuple]] = None,
     device: Optional[torch.device] = None,
+    attrs: Optional[Dict[str, Any]] = None,
 ) -> SyncHandle:
     """Enter the bucketed sync of ``state`` over ``group`` without waiting;
     returns a ``"device"`` :class:`SyncHandle`.
@@ -405,14 +423,21 @@ def deferred_sync_state(
     corrupted payload that the guard retries at ``result()`` enters its
     collective again at the same point on every rank. Without a
     ``torch.distributed`` group the handle is ready with a copy of the state.
+    ``attrs`` are extra attributes of the ``deferred.dispatch`` span.
     """
     if not state or not dist_active():
         out = snapshot_state(state)
         return SyncHandle("ready", finish(out) if finish is not None else out, watermark=watermark,
                           label="sync_state")
     guard = guard if guard is not None else current_sync_guard()
-    pending = dispatch_state_sync(state, reductions, group=group, layouts=layouts, device=device, guard=guard,
-                                  deferred=True)
+    span_attrs = None
+    if TRACE.enabled:
+        span_attrs = {"plane": "sync_state"}
+        if attrs:
+            span_attrs.update(attrs)
+    with _span("deferred.dispatch", span_attrs):
+        pending = dispatch_state_sync(state, reductions, group=group, layouts=layouts, device=device, guard=guard,
+                                      deferred=True)
     record_deferred("dispatched")
     return SyncHandle("device", pending, finish=finish, watermark=watermark, label="sync_state")
 
@@ -423,6 +448,7 @@ def deferred_sparse_sync(
     touched: Any = None,
     watermark: Optional[int] = None,
     label: str = "sparse_sync",
+    attrs: Optional[Dict[str, Any]] = None,
 ) -> SyncHandle:
     """Run one sparse round in the background; returns a ``"host"``
     :class:`SyncHandle`.
@@ -433,20 +459,28 @@ def deferred_sparse_sync(
     ``"sparse_sync"``, the round ledger) on the single-worker host plane, over
     the plane's own process groups (see the module docstring). ``state`` is
     copied now (the port's states are written in place), so the caller keeps
-    accumulating; the ``touched`` hint too. The JAX package's ``attrs`` (span
-    attributes) wait for the port's tracing plane.
+    accumulating; the ``touched`` hint too. ``attrs`` are extra attributes of
+    the ``deferred.dispatch`` span.
     """
-    topo = plane._twin_topology()
-    snapshot = snapshot_state(state)
-    hint = None if touched is None else torch.as_tensor(touched).clone()
+    span_attrs = None
+    if TRACE.enabled:
+        span_attrs = {"plane": label, "capacity": plane.capacity}
+        if attrs:
+            span_attrs.update(attrs)
+    with _span("deferred.dispatch", span_attrs):
+        topo = plane._twin_topology()
+        snapshot = snapshot_state(state)
+        hint = None if touched is None else torch.as_tensor(touched).clone()
 
-    def task() -> Any:
-        with plane._lock:
-            out = plane._sync_locked(snapshot, hint, topo)
-        record_deferred("completed")
-        return out
+        def task() -> Any:
+            task_attrs = {"plane": label} if TRACE.enabled else None
+            with _span("deferred.complete", task_attrs):
+                with plane._lock:
+                    out = plane._sync_locked(snapshot, hint, topo)
+            record_deferred("completed")
+            return out
 
-    future = _HOST_PLANE.submit(task)
+        future = _HOST_PLANE.submit(task)
     plane._inflight = [f for f in plane._inflight if not f.done()] + [future]
     record_deferred("dispatched")
     return SyncHandle("host", future, watermark=watermark, label=label)

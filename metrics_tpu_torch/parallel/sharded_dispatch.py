@@ -16,6 +16,10 @@ gather, so the two agree by construction. A batch value computed without a
 sync (a ``forward`` without ``dist_sync_on_step``) is local by definition
 and takes the single-rank path. Left out for good: the JAX package's jitted
 ``shard_map`` launch cache, which an eager port has no program to cache for.
+Each engine call takes the place of the JAX package's ``_launch``: it runs in
+a ``sharded.launch`` span (``{"key": engine}``, fenced in device-time mode,
+the ``engine`` column of ``device_time_table``) and an
+``annotate("sharded.engine")`` scope.
 
 Every rank must reach the same runner: all ranks of the group update the
 metric at least once an epoch (the buffers and the data mode come from the
@@ -23,13 +27,18 @@ first append), and the one host read of the counts follows an ``all_reduce``
 of them, so an overflow or a lockstep fault on one rank raises on every rank
 before any engine collective is entered.
 """
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import Tensor
 
 from metrics_tpu_torch.observability.counters import record_collective
+from metrics_tpu_torch.observability.devtime import DEVTIME as _DEVTIME
+from metrics_tpu_torch.observability.devtime import fence as _fence
+from metrics_tpu_torch.observability.profiler import annotate
+from metrics_tpu_torch.observability.trace import TRACE
+from metrics_tpu_torch.observability.trace import span as _span
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_mask, handle_overflow
 from metrics_tpu_torch.parallel.placement import group_world
 from metrics_tpu_torch.parallel.sharded_epoch import (
@@ -194,6 +203,19 @@ def average_precision_applicable(metric: Any) -> Optional[_CurvePlan]:
     return None
 
 
+def _launch(key: str, engine: Callable, *args: Any, **kwargs: Any) -> Any:
+    """Run one sharded engine call: the eager counterpart of the JAX package's
+    ``_launch``, with its ``sharded.launch`` span and phase fence."""
+    if TRACE.enabled:
+        with _span("sharded.launch", {"key": key}):
+            with annotate("sharded.engine"):
+                out = engine(*args, **kwargs)
+            if _DEVTIME.enabled:  # the engine's device time lands here
+                _fence(out)
+            return out
+    return engine(*args, **kwargs)
+
+
 def _class_scores(kind: str, info: ShardInfo, p: Tensor, t: Tensor, valid: Tensor, columns: str
                   ) -> Tuple[Tensor, Tensor]:
     """(C,) per-class scores and (C,) supports over the sharded epoch."""
@@ -204,7 +226,7 @@ def _class_scores(kind: str, info: ShardInfo, p: Tensor, t: Tensor, valid: Tenso
     else:  # multilabel columns: positives are 1
         onehot = (t == 1).to(torch.int32)
     # the engine's per-class positive weight is the valid-row support: it rides the engine's own all_reduce
-    return engine(p, onehot, info.group, valid.to(torch.float32), with_support=True)
+    return _launch(kind, engine, p, onehot, info.group, valid.to(torch.float32), with_support=True)
 
 
 def _default_pos_label(metric: Any) -> int:
@@ -227,7 +249,7 @@ def _binary_scalar(kind: str, info: ShardInfo, p: Tensor, t: Tensor, valid: Tens
     if flatten:
         w = w.repeat_interleave(p.shape[1])
         p, y = p.reshape(-1), y.reshape(-1)
-    return engine(p[:, None], y[:, None], info.group, w[:, None])[0]
+    return _launch(kind, engine, p[:, None], y[:, None], info.group, w[:, None])[0]
 
 
 def _average(scores: Tensor, support: Tensor, average: Any) -> Any:
@@ -258,8 +280,8 @@ def auroc_sharded(metric: Any) -> Optional[Any]:
         pos_label = _default_pos_label(metric)
         p = p[:, 0] if p.ndim > t.ndim else p
         y = (t == pos_label).to(torch.float32)
-        fps, tps, th, counts = sharded_clf_curve_matrix(p[None, :], y[None, :], valid.to(torch.float32)[None, :],
-                                                        plan.info.group)
+        fps, tps, th, counts = _launch("clf_curve", sharded_clf_curve_matrix, p[None, :], y[None, :],
+                                       valid.to(torch.float32)[None, :], plan.info.group)
         fpr, tpr, _, _ = roc_from_clf_curve(fps[0], tps[0], th[0], counts[0])
         return partial_auroc_from_roc(fpr, tpr, float(metric.max_fpr))
     if plan.form in ("binary", "micro"):
@@ -283,8 +305,7 @@ def average_precision_sharded(metric: Any) -> Optional[Any]:
     valid, _ = _check_counts(metric, plan.info, "preds", "target")
     p, t = metric.preds.data, metric.target.data
     if plan.form == "binary":
-        pos_label = 1 if metric.pos_label is None else metric.pos_label
-        return _binary_scalar("ap", plan.info, p, t, valid, pos_label)
+        return _binary_scalar("ap", plan.info, p, t, valid, _default_pos_label(metric))
     scores, _ = _class_scores("ap", plan.info, p, t, valid, "multilabel" if plan.form == "multilabel" else "labels")
     return ClassScores(scores)
 
@@ -315,16 +336,16 @@ def curve_sharded(metric: Any, kind: str) -> Optional[tuple]:
     if info is None:
         return None
     valid = _check_counts(metric, info, "preds", "target")[0].to(torch.float32)
-    pos_label = metric.pos_label if metric.pos_label is not None else 1
     p, t = metric.preds.data, metric.target.data
     if p.ndim == 1:
+        pos_label = _default_pos_label(metric)
         p_cm, y_cm, w_cm = p[None, :], (t == pos_label).to(torch.float32)[None, :], valid[None, :]
     elif t.ndim == 2:  # multilabel: column c against positives == 1
         p_cm, y_cm, w_cm = p.T, (t == 1).T.to(torch.float32), valid[None, :].expand(p.shape[1], -1)
     else:  # multiclass: class c against the rest
         classes = torch.arange(p.shape[1], device=t.device)[:, None]
         p_cm, y_cm, w_cm = p.T, (t[None, :] == classes).to(torch.float32), valid[None, :].expand(p.shape[1], -1)
-    fps, tps, th, counts = sharded_clf_curve_matrix(p_cm, y_cm, w_cm, info.group)
+    fps, tps, th, counts = _launch("clf_curve", sharded_clf_curve_matrix, p_cm, y_cm, w_cm, info.group)
     transform = roc_from_clf_curve if kind == "roc" else precision_recall_from_clf_curve
     outs = [transform(fps[c], tps[c], th[c], counts[c]) for c in range(fps.shape[0])]
     if p.ndim == 1:
@@ -356,8 +377,8 @@ def _rank_corr_sharded(metric: Any, kind: str) -> Optional[Tensor]:
         # the ring splits the quadratic work n ways, but its total stays quadratic: the same warning,
         # at the epoch's rows when the ranks hold equal shares
         _warn_if_quadratic(largest * info.world)
-        return sharded_kendall(p, t, info.group, valid)
-    return sharded_spearman(p, t, info.group, valid)
+        return _launch("kendall", sharded_kendall, p, t, info.group, valid)
+    return _launch("spearman", sharded_spearman, p, t, info.group, valid)
 
 
 def spearman_sharded(metric: Any) -> Optional[Tensor]:
@@ -398,8 +419,8 @@ def retrieval_sharded(metric: Any) -> Optional[Tensor]:
     capacity = metric.regroup_capacity
     if capacity is None:
         capacity = default_regroup_capacity(metric.idx.capacity, info.world)
-    mean, flag, dropped = sharded_retrieval_sums(metric, metric.idx.data, metric.preds.data, metric.target.data,
-                                                 info.group, capacity=capacity, valid=valid)
+    mean, flag, dropped = _launch("retrieval", sharded_retrieval_sums, metric, metric.idx.data, metric.preds.data,
+                                  metric.target.data, info.group, capacity=capacity, valid=valid)
     n_dropped, empty = torch.stack([dropped.to(torch.int64), flag.to(torch.int64)]).tolist()
     if n_dropped:
         raise RuntimeError(

@@ -55,6 +55,7 @@ import torch.distributed as dist
 from torch import Tensor
 
 from metrics_tpu_torch.observability.counters import record_collective
+from metrics_tpu_torch.observability.profiler import annotate
 from metrics_tpu_torch.parallel.placement import MeshHierarchy
 
 # pad query id of regroup ghost rows; real query ids must not use it
@@ -210,10 +211,12 @@ def _ring_stats_cols(preds_cm: Tensor, target_cm: Tensor, weights_cm: Tensor, gr
     q = _rank_key(preds_cm, _ring_dtype(preds_cm)).contiguous()
     pack = _pack(preds_cm, target_cm, weights_cm)
     visiting = pack.unsqueeze(0) if topo.dcn is None else _gather_level(pack, topo.dcn)
-    acc = _accumulate(None, visiting, q)
-    for _ in range(topo.ring.n - 1):
-        visiting = _hop(visiting, topo.ring)
-        acc = _accumulate(acc, visiting, q)
+    # the scope labels the ring's hops and kernels on the profiler's timeline
+    with annotate("sharded.engine.ring"):
+        acc = _accumulate(None, visiting, q)
+        for _ in range(topo.ring.n - 1):
+            visiting = _hop(visiting, topo.ring)
+            acc = _accumulate(acc, visiting, q)
     return tuple(acc)  # type: ignore[return-value]
 
 
@@ -420,11 +423,12 @@ def sharded_kendall(preds: Tensor, target: Tensor, group: Any = None, sample_wei
         else sample_weights.to(torch.float32)
     rows = torch.stack([x, y, w])
     visiting = rows if topo.dcn is None else _flat_rows(_gather_level(rows[:, None], topo.dcn))[:, 0]
-    acc = _kendall_contract(x, y, visiting, torch.zeros((3, x.shape[0]), dtype=torch.float32, device=x.device),
-                            max(chunk, 1))
-    for _ in range(topo.ring.n - 1):
-        visiting = _hop(visiting, topo.ring)
-        acc = _kendall_contract(x, y, visiting, acc, max(chunk, 1))
+    with annotate("sharded.engine.ring"):
+        acc = _kendall_contract(x, y, visiting,
+                                torch.zeros((3, x.shape[0]), dtype=torch.float32, device=x.device), max(chunk, 1))
+        for _ in range(topo.ring.n - 1):
+            visiting = _hop(visiting, topo.ring)
+            acc = _kendall_contract(x, y, visiting, acc, max(chunk, 1))
     w64, acc64 = w.to(torch.float64), acc.to(torch.float64)
     sums = torch.stack([torch.sum(w64 * acc64[0]), torch.sum(w64 * acc64[1]), torch.sum(w64 * acc64[2]),
                         torch.sum(w64), torch.sum(w64 * w64)])
@@ -472,8 +476,10 @@ def _route_rows(dest: Tensor, payload: Tuple[Tuple[Tensor, Any], ...], capacity:
         out[flat] = values[order]
         return out[: n * capacity]
 
-    routed = tuple(_exchange(scatter(values, fill), level) for values, fill in payload)
-    real = _exchange(scatter(torch.ones(rows, dtype=torch.uint8, device=dest.device), 0), level).to(torch.bool)
+    # the scope labels the regroup's exchanges on the profiler's timeline
+    with annotate("sharded.engine.regroup"):
+        routed = tuple(_exchange(scatter(values, fill), level) for values, fill in payload)
+        real = _exchange(scatter(torch.ones(rows, dtype=torch.uint8, device=dest.device), 0), level).to(torch.bool)
     overflow = torch.sum(torch.clamp(counts - capacity, min=0))
     return routed, real, overflow
 

@@ -66,6 +66,8 @@ from metrics_tpu_torch.observability.counters import (
     record_gather_skip,
     record_states_synced,
 )
+from metrics_tpu_torch.observability.profiler import annotate
+from metrics_tpu_torch.observability.trace import current_span
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer, buffer_compact_gathered, buffer_merge, handle_overflow
 from metrics_tpu_torch.parallel.placement import HostHierarchy, MeshHierarchy
 from metrics_tpu_torch.parallel.sketch import is_sketch, sketch_merge
@@ -744,6 +746,7 @@ class StateSync:
         results = [(names, self.plane.resolve(call)[0]) for names, call in self.calls]
         if self.plane.degraded:
             record_fault("degraded_computes")
+            _stamp_degraded_span()
             # the whole sync falls back to the local state, laid out as a world of one
             self._out = _assemble(self.state, self.reductions, self.gather_names,
                                   [(names, call.value) for names, call in self.calls],
@@ -752,6 +755,18 @@ class StateSync:
             world = self.topo.world if any(self.reductions[n] == "mean" for n in self.state) else 1
             self._out = _assemble(self.state, self.reductions, self.gather_names, results, self.gathered, world)
         return self._out
+
+
+def _stamp_degraded_span() -> None:
+    """Mark the innermost open span ``degraded=yes``: the sync span of
+    ``Metric._sync_dist``, the collection's step or host sync span, or the
+    deferred plane's ``deferred.complete`` / ``deferred.fence``."""
+    span = current_span()
+    if span is None:
+        return
+    if span.attrs is None:
+        span.attrs = {}
+    span.attrs["degraded"] = "yes"
 
 
 def _local_gathered(state: Dict[str, Any], names: List[str], layouts: Dict[str, tuple]) -> Dict[str, Any]:
@@ -852,7 +867,8 @@ def all_reduce_state(
     call held this thread (the adaptive lag controller's lag-0 probe).
     """
     t0 = time.perf_counter() if timer is not None else 0.0
-    out = dispatch_state_sync(state, reductions, group, layouts, device, guard, hierarchy=hierarchy).finish()
+    with annotate("metric.sync"):
+        out = dispatch_state_sync(state, reductions, group, layouts, device, guard, hierarchy=hierarchy).finish()
     if timer is not None:
         timer((time.perf_counter() - t0) * 1e3)
     return out
@@ -1046,14 +1062,16 @@ def host_gather(
 
     t0 = time.perf_counter() if timer is not None else 0.0
     fn = gather if plane.active else gather_fn
-    if is_packable_gather(gather_fn):
-        gathered = _packed_gather_units(units, fn)
-    else:
-        gathered = [fn(u) for u in units]
+    with annotate("metric.sync"):
+        if is_packable_gather(gather_fn):
+            gathered = _packed_gather_units(units, fn)
+        else:
+            gathered = [fn(u) for u in units]
     if timer is not None:
         timer((time.perf_counter() - t0) * 1e3)
     if plane.degraded:
         record_fault("degraded_computes")
+        _stamp_degraded_span()
         gathered = [[u] for u in units]
 
     out: Dict[str, Any] = {}

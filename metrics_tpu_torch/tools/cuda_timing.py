@@ -75,19 +75,29 @@ def device_breakdown(fn: Callable[[], object], calls: int = 20) -> List[Dict[str
     ``{"name", "per_call", "us_per_call"}``, where ``per_call`` is how many times
     it ran per call of ``fn`` and ``us_per_call`` its device microseconds per
     call of ``fn``. Raises when the trace holds no device time.
+
+    The session takes a warm-up step of one call first, whose events it drops:
+    a kernel launched just after a session starts can go unrecorded (one of 20
+    did on the card once), which would read as a fraction of a launch a call.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()  # the warm-up step ends; the measured step begins
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     rows = [
         {"name": e.key, "per_call": e.count / calls, "us_per_call": e.self_device_time_total / calls}
         for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0
+        # the schedule's own ``ProfilerStep#`` range is no device operation of ``fn``
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count > 0 and not e.key.startswith("ProfilerStep")
     ]
     if not rows or sum(r["us_per_call"] for r in rows) <= 0:
         raise AssertionError("torch.profiler recorded no device time on this machine")

@@ -41,11 +41,16 @@ ROADMAP section 3.)
 Left out: the compiled bucketed ingest (``_scatter_bucketed`` /
 ``_build_ingest_program``; an eager port compiles nothing, and the eager path
 is the same arithmetic), ``sparse_plane`` and ``_integrity_state`` (they need
-``parallel/sparse.py`` and ``check_finite``), and the lifecycle ledger's
-stamps (``lifecycle_label`` stays, always ``None`` here).
+``parallel/sparse.py`` and ``check_finite``).
+
+The lifecycle ledger: with ``lifecycle_label`` set (the owning service sets
+it) and the ledger enabled, every window an update's accepted samples touch
+gets its ``first_event`` (first wins) and ``last_event`` (last wins) stamp,
+host arithmetic over the routing the update computed anyway.
 """
 import itertools
 import math
+import time
 from copy import deepcopy
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -54,8 +59,9 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric, State, _BufferSpec
-from metrics_tpu_torch.core.streaming import WatermarkAgreement, WindowSpec, decay_scale, route_events
+from metrics_tpu_torch.core.streaming import WatermarkAgreement, WindowSpec, decay_scale, route_events, window_index
 from metrics_tpu_torch.observability.counters import record_slab_dropped
+from metrics_tpu_torch.observability.lifecycle import LEDGER as _LEDGER
 from metrics_tpu_torch.parallel.cms import CMSSpec
 from metrics_tpu_torch.parallel.qsketch import QSketchSpec
 from metrics_tpu_torch.parallel.sketch import SketchSpec, is_sketch
@@ -200,7 +206,7 @@ class Windowed(Metric):
         self.slide_s = None if self.decay or slide_s is None else float(slide_s)
         self.empty = empty
         self._metric_label = f"Windowed({type(metric).__name__})"
-        # the lifecycle ledger's stamp key in the JAX package; the ledger is not ported, so it stays None
+        # the lifecycle ledger's stamp key: set by the owning service (None: no stamps)
         self.lifecycle_label: Optional[str] = None
 
         # stream position (host metadata, checkpointed): None until the first event
@@ -474,12 +480,31 @@ class Windowed(Metric):
         if route.n_dropped:
             self._dropped += route.n_dropped
             record_slab_dropped(route.n_dropped)
+        if _LEDGER.enabled and self.lifecycle_label is not None:
+            self._stamp_lifecycle(times, route)
         rows = (route.slot_ids, *route.overlap_slots)
         accepted = np.logical_or.reduce([r >= 0 for r in rows]) if rows[0].size else np.zeros(0, bool)
         if accepted.all():
             return _Routing(None, rows, None, 1.0)
         keep = np.flatnonzero(accepted)
         return _Routing(keep, tuple(r[keep] for r in rows), None, 1.0)
+
+    def _stamp_lifecycle(self, times: np.ndarray, route: Any) -> None:
+        """The ledger's open and ingest stamps: every window this batch's
+        accepted samples touched gets ``first_event`` (first wins) and
+        ``last_event`` (last wins), as the JAX package stamps them."""
+        accepted = np.asarray(route.slot_ids) >= 0
+        touched = set()
+        if accepted.any():
+            touched.update(int(w) for w in np.unique(window_index(times[accepted], self._spec.stride)))
+        for j, row in enumerate(route.overlap_slots):
+            covered = np.asarray(row) >= 0
+            if covered.any():
+                touched.update(int(w) - (j + 1) for w in np.unique(window_index(times[covered], self._spec.stride)))
+        now_ns = time.perf_counter_ns()
+        for w in sorted(touched):
+            _LEDGER.stamp(self.lifecycle_label, w, "first_event", ns=now_ns)
+            _LEDGER.stamp(self.lifecycle_label, w, "last_event", ns=now_ns)
 
     def _route_decay(self, times: np.ndarray) -> _Routing:
         """The decay accumulator's routing: the accepted samples, their weights

@@ -36,6 +36,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import warnings
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -607,3 +608,39 @@ def test_placement_policies_in_one_process():
     col.device_put(torch.device("cpu"))
     col.reset()
     assert col["SpearmanCorrcoef"].preds_all.data.device.type == "cpu" and col["Accuracy"].device.type == "cpu"
+
+
+_POS_LABEL_WARNING = "`pos_label` automatically set 1."
+
+
+@pytest.mark.parametrize("name", ["AveragePrecision", "ROC", "PrecisionRecallCurve"])
+def test_sharded_binary_pos_label_default_warns_as_the_gather_path(name):
+    """Binary AP / ROC / PRC without a ``pos_label``: the gather path warns
+    (at the update, which records ``pos_label = 1``); the sharded dispatch
+    gives the same warning for a metric whose ``pos_label`` is still unset at
+    ``compute()``, and the value of ``pos_label = 1``."""
+    from metrics_tpu_torch.utils import prints as pprints
+
+    rng = np.random.default_rng(31)
+    p = torch.from_numpy(rng.random(40).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 2, 40))
+
+    def caught(fn):
+        pprints._WARN_ONCE_SEEN.discard(_POS_LABEL_WARNING)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+        return out, [str(w.message) for w in seen if "pos_label" in str(w.message)]
+
+    gathered = getattr(pt, name)(capacity=64, device="cpu")
+    _, gather_warnings = caught(lambda: gathered.update(p, t))
+    want = gathered.compute()
+    sharded = getattr(pt, name)(capacity=64, device="cpu")
+    sharded.device_put(pt.parallel.row_sharded())
+    sharded.update(p, t)
+    sharded.pos_label = None  # unset at compute(): the dispatch's own default applies
+    got, shard_warnings = caught(sharded.compute)
+    assert gather_warnings == shard_warnings == [_POS_LABEL_WARNING]
+    assert sharded.pos_label is None
+    for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=ATOL)
