@@ -295,7 +295,24 @@ Phases, in order; each raises on failure and none is caught:
    ``selfmeter`` gauges appear in ``counters_snapshot()``; path A's collection with ``deferred_epoch_sync=True``
    computes the synchronous epoch with the same ``all_reduce`` count. Path O runs no hand-written kernel but K1:
    the JAX observability planes are host Python and ``jax.profiler`` / ``jax.monitoring`` hooks, not Pallas.
-19. The ``kernels`` JSON line, then the device JSON as the last line.
+19. Path P, the serving plane, in the one-rank NCCL group after path O. P1: a ``MetricService`` over W1's
+   stream (24 batches of 65,536 events) into ``Windowed(AUROC sketch, 60 s, 4 windows, 180 s lateness)`` without
+   ``dist_sync_on_step``, the deferred publish stage on (every publish's merged view an ``all_reduce`` on the host
+   plane's worker) and a ``RetentionStore`` attached: every published window's (label, bin) counts equal a numpy
+   router's ``bincount`` bit for bit and its value AUROC over those counts, the final merged value equals path K's
+   W1 epoch, the synchronous stage is bit-equal, and the first 2 batches publish the CPU run's partials; prints
+   batches/s, events/s, the lifecycle e2e ms a window and the queue and publish-pipeline high-water marks. P2:
+   W1's first 4 steps in batches of 512 events behind the processing lock: coalescing on bit-equal to off, spans
+   printed. P3: a seeded late burst, ingest stall and persistent sync drop (every publish degraded), then a preempt
+   at ingest call 9, ``restore`` and a replay with 2 batches of overlap: bit-equal to the run not interrupted. P4:
+   an 8-shard ``MetricFleet`` of ``Windowed(Accuracy)`` over 96 tenant batches of 8,192 (``bench.py``'s fleet
+   topology): merged records bit-equal to one service over the union with no shard recovered, and again with a
+   shard killed and recovered (only that run catches the preempt it injected);
+   a ``HeavyHitterFleet`` over G5's first 2 steps of Zipf(1.1) keys against ``np.bincount``. P5: the store's
+   queries on ``bench.py``'s ladder shape at W1's stride bit-equal to hand merges of P1's raw partials, and one
+   ``GET /metrics`` of an ``ExpositionServer`` parsed back. Every service, fleet and server is stopped and the host
+   plane drained before the group is destroyed. No kernel but K1: the JAX serving plane is host Python.
+20. The ``kernels`` JSON line, then the device JSON as the last line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the package
 is not beside this script.
@@ -697,6 +714,9 @@ def phase_paths():
         t0 = time.perf_counter()
         path_o = run_path_o(dev, a_batches, b_batches)
         path_o_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path_p = run_path_p(dev)
+        path_p_s = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
 
@@ -741,10 +761,14 @@ def phase_paths():
     t0 = time.perf_counter()
     o_timings = check_path_o(path_o, a_values, a_epoch, a_ms, b_values)
     print(f"    path O: {path_o_s:.1f} s on the card, {time.perf_counter() - t0:.1f} s of checks")
+    t0 = time.perf_counter()
+    p_timings = check_path_p(path_p, path_k["W1"]["epoch"], dev)
+    print(f"    path P: {path_p_s:.1f} s on the card ({', '.join(f'{k} {v:.1f}' for k, v in p_timings['s'].items())}),"
+          f" {time.perf_counter() - t0:.1f} s of checks")
     return {"a_ms": statistics.median(a_ms), "b_ms": statistics.median(b_ms), "b_launches": b_launches,
             "c": path_c["timings"], "d": d_timings, "e": e_timings,
             "f": f_timings, "g": g_timings, "h": h_timings, "i": i_timings, "j": j_timings,
-            "k": k_timings, "l": l_timings, "m": m_timings, "n": n_timings, "o": o_timings}
+            "k": k_timings, "l": l_timings, "m": m_timings, "n": n_timings, "o": o_timings, "p": p_timings}
 
 
 def _profile_step(collection, batch):
@@ -7314,6 +7338,520 @@ def check_path_o(result, a_values, a_epoch, a_ms, b_values):
             "O1_s": o1["s"], "O3": None if o3 is None else o3["compile"]}
 
 
+# ---- path P: the serving plane at W1's size (24 batches of 65,536 events into a served Windowed(AUROC sketch)
+# ring), bench.py's fleet topology and retention ladder, G5's Zipf keys
+P_LABEL = "path-p/P1"
+P2_STEPS, P2_BATCH = 4, 512  # W1's first 4 steps in batches of 512 events, so spans form under coalesce_max_samples
+P3_PREEMPT_CALL, P3_STALL_CALL, P3_STALL_S, P3_LATE_CALL, P3_LATE_S = 9, 5, 0.2, 3, 300.0  # beyond W1's 180 s
+P4_SHARDS, P4_WINDOW_S, P4_WINDOWS, P4_LATENESS = 8, 10.0, 4, 20.0  # bench.py:193-205's fleet topology
+P4_BATCHES, P4_BATCH, P4_KILL_CALL = 96, 8_192, 4
+P4_HH_STEPS, P4_HH_HOT, P4_HH_TAIL, P4_HH_TOP = 2, 256, (4, 1_024), 16  # G5's first 2 steps; J4's two tiers
+P5_LADDER = ((W1_WINDOW_S, 4), (4 * W1_WINDOW_S, 4), (16 * W1_WINDOW_S, 8))  # bench.py:282-288's shape, W1's stride
+
+
+def _p_hist_fold(data):
+    """The (label, bin) counts of the events a window took, by a numpy ``bincount`` (check_path_k's fold)."""
+    def fold(parts):
+        total = np.zeros(2 * G_BINS, np.int64)
+        for i, mask in parts:
+            b = data[i]
+            flat = np.where(b["labels"] == 1, 0, 1) * G_BINS + _g_linear_bins(b["scores"], G_BINS)
+            total += np.bincount(flat[mask], minlength=2 * G_BINS)
+        return total.reshape(2, G_BINS)
+
+    return fold
+
+
+def _p_w1(device):
+    import metrics_tpu_torch as pt
+
+    # no dist_sync_on_step: the ingest thread enters no collective; each publish syncs on one thread
+    return pt.Windowed(pt.AUROC(approx="sketch", device=device), window_s=W1_WINDOW_S, num_windows=W1_WINDOWS,
+                       allowed_lateness_s=W1_LATENESS)
+
+
+def _p_records(svc):
+    return [{k: r[k] for k in ("window", "value", "merged", "degraded", "final", "dropped_samples")}
+            for r in svc.publications]
+
+
+def _p_serve(svc, inputs, depths=None):
+    """Submit every batch by seq, then flush; returns the host seconds. ``depths`` gets the queue depth after
+    each submit (the producer's view of the ingress queue)."""
+    t0 = time.perf_counter()
+    for i, (s, y, t) in enumerate(inputs):
+        svc.submit(s, y, event_time=t, seq=i)
+        if depths is not None:
+            depths.append(svc._queue.qsize())
+    svc.flush(300.0)
+    return time.perf_counter() - t0
+
+
+def _p_e2e(obs, svc):
+    """The lifecycle ledger's close -> publish ms of each window the service published."""
+    return [obs.LEDGER.latencies(svc.label, r["window"]).get("e2e") for r in svc.publications]
+
+
+def _p_partial_counts(partials):
+    return {int(p["window"]): (np.asarray(p["state"]["hist"].counts), float(np.asarray(p["rows"])), p["final"])
+            for p in partials}
+
+
+def _p_g5_keys(steps):
+    """The first ``steps`` steps of G5's keys (``_g_keys``'s draw, without its count-min hashing)."""
+    rng = np.random.default_rng(14)
+    cdf = np.cumsum(np.arange(1, G5_KEYS + 1, dtype=np.float64) ** -1.1)
+    return [np.searchsorted(cdf, rng.random(G5_N) * cdf[-1]).astype(np.int64) for _ in range(steps)]
+
+
+def _p_fleet_stream():
+    """P4's tenant batches: tenants balanced over the shards by the stable hash, times ``i * 2.5 + U(0, 2.5)``
+    with a fifth of the events up to 8 s late (inside the 20 s lateness), scores and 30% positive labels."""
+    from metrics_tpu_torch.serving import shard_for_key
+
+    keys, per, j = [], {s: 0 for s in range(P4_SHARDS)}, 0
+    while any(v < P4_BATCHES // P4_SHARDS for v in per.values()):
+        key, j = f"tenant-{j}", j + 1
+        s = shard_for_key(key, P4_SHARDS)
+        if per[s] < P4_BATCHES // P4_SHARDS:
+            per[s] += 1
+            keys.append(key)
+    rng = np.random.RandomState(64)
+    out = []
+    for i in range(P4_BATCHES):
+        t = i * 2.5 + rng.uniform(0, 2.5, P4_BATCH)
+        t = np.where(rng.rand(P4_BATCH) < 0.2, t - rng.uniform(0, 8.0, P4_BATCH), t)
+        labels = (rng.rand(P4_BATCH) < 0.3).astype(np.int64)
+        scores = (1 / (1 + np.exp(-(rng.randn(P4_BATCH) + 1.5 * labels)))).astype(np.float32)
+        out.append((keys[i % len(keys)], t, scores, labels))
+    return out
+
+
+def _p4_factory(device):
+    import metrics_tpu_torch as pt
+
+    return lambda: pt.Windowed(pt.Accuracy(device=device), window_s=P4_WINDOW_S, num_windows=P4_WINDOWS,
+                               allowed_lateness_s=P4_LATENESS)
+
+
+def _p_fleet(device, stream, made, kill_shard=None):
+    """An 8-shard fleet of Windowed(Accuracy) over P4's stream; with ``kill_shard`` a seeded preempt kills it at
+    its ingest call ``P4_KILL_CALL`` and ``recover_shard`` rebuilds it."""
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.parallel import faults
+    from metrics_tpu_torch.serving import FLEET_SITE, ShardStoppedError
+    from metrics_tpu_torch.utils.exceptions import PreemptionError
+
+    # only the killed run recovers, and only from the preempt it injected: any other fault propagates
+    stopped, preempted = (ShardStoppedError, PreemptionError) if kill_shard is not None else ((), ())
+    injector = None
+    if kill_shard is not None:
+        injector = faults.ChaosInjector([faults.FaultSpec(kind="preempt", call=P4_KILL_CALL, times=1,
+                                                          site=FLEET_SITE, shard=kill_shard)], seed=0).install()
+    recovered = 0
+    try:
+        fleet = pt.MetricFleet(_p4_factory(device), num_shards=P4_SHARDS,
+                               name="path-p/P4" + ("" if kill_shard is None else "-kill"))
+        made.append(fleet)
+        t0 = time.perf_counter()
+        for key, t, s, y in stream:
+            try:
+                fleet.submit(key, torch.from_numpy(s).to(device), torch.from_numpy(y).to(device), event_time=t)
+            except stopped as err:
+                fleet.recover_shard(err.shard)
+                recovered += 1
+        try:
+            fleet.flush(300.0)
+        except preempted:  # a kill the submissions never saw surfaces at the barrier
+            dead = [i for i, svc in enumerate(fleet.shards) if svc.state == "preempted"]
+            if not dead:
+                raise
+            for i in dead:
+                fleet.recover_shard(i)
+                recovered += 1
+        merged = float(fleet.finalize(300.0))
+        seconds = time.perf_counter() - t0
+        fleet.stop()
+    finally:
+        if injector is not None:
+            injector.uninstall()
+    records = [{k: r[k] for k in ("window", "value", "rows", "shards", "degraded", "forced", "final")}
+               for r in fleet.merged_records]
+    return {"records": records, "merged": merged, "recovered": recovered, "s": seconds,
+            "replayed": sum(s.replayed_steps for s in fleet.shards)}
+
+
+def _p_scrape(url):
+    """One ``GET /metrics``: status, content type, body."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.status, resp.headers["Content-Type"], resp.read().decode("utf-8")
+
+
+def _p_parse(body):
+    """The exposition parsed back: {family: kind} from ``# TYPE`` lines and [(name, {label: value}, value)] samples;
+    raises on a line that is neither."""
+    import re
+
+    sample = re.compile(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    lines = body.split("\n")
+    if lines[-2:] != ["# EOF", ""]:
+        raise AssertionError("path P5: the exposition does not end with '# EOF'")
+    kinds, samples = {}, []
+    for line in lines[:-2]:
+        if line.startswith("# TYPE "):
+            name, kind = line[7:].rsplit(" ", 1)
+            kinds[name] = kind
+        elif line.startswith("# HELP "):
+            continue
+        else:
+            m = sample.match(line)
+            if m is None:
+                raise AssertionError(f"path P5: unparseable exposition line {line!r}")
+            samples.append((m.group(1), dict(label.findall(m.group(2) or "")), m.group(3)))
+    return kinds, samples
+
+
+def run_path_p(device):
+    """Path P inside the caller's process group: P1 a served W1 ring (deferred stage, then the synchronous stage,
+    then its first 2 batches alone for the CPU comparison) with a retention store attached, P2 the coalescing path,
+    P3 the chaos soak with preempt / restore / replay, P4 an 8-shard fleet (then with a shard killed and recovered)
+    and a HeavyHitterFleet over G5's keys, P5 the store's queries and one scrape of an ExpositionServer. Every
+    service, fleet and server is stopped, and the host plane drained, before it returns."""
+    import torch
+
+    import metrics_tpu_torch as pt
+    import metrics_tpu_torch.observability as obs
+    from metrics_tpu_torch.parallel import faults
+    from metrics_tpu_torch.parallel.deferred import drain_host_plane
+    from metrics_tpu_torch.parallel.sync import SyncGuard
+    from metrics_tpu_torch.serving.service import INGEST_SITE, ServiceStoppedError
+    from metrics_tpu_torch.utils.exceptions import PreemptionError
+
+    to = (lambda x: torch.from_numpy(x).to(device))
+    data = _k_events(61, W1_STEPS, W1_ADVANCE, (0.05, (0.0, 150.0)), (0.005, (250.0, 400.0)))
+    inputs = [(to(b["scores"]), to(b["labels"]), b["t"]) for b in data]
+    out, made, server = {"data": data}, [], None
+    try:
+        # P1: the served ring, deferred publish, a retention store attached, the ledger on
+        t0 = time.perf_counter()
+        raw, depths = [], []
+        obs.disable()
+        obs.reset()
+        obs.enable()
+        svc = pt.MetricService(_p_w1(device), name=P_LABEL, queue_size=64,
+                               partial_publish_fn=lambda record, partial: raw.append(partial))
+        made.append(svc)
+        store = pt.RetentionStore(ladder=P5_LADDER, name="path-p/store").attach(svc)
+        ingest_s = _p_serve(svc, inputs, depths)
+        merged = float(svc.finalize(300.0))
+        svc.stop()
+        snap = obs.counters_snapshot()
+        out["P1"] = {"records": _p_records(svc), "merged": merged, "partials": _p_partial_counts(raw),
+                     "ingest_s": ingest_s, "e2e_ms": _p_e2e(obs, svc), "queue_max": max(depths),
+                     "deferred_max": snap["deferred_depth"][P_LABEL]["max"],
+                     "selfmeter": snap["selfmeter"].get(P_LABEL, {}), "dropped": svc.metric.dropped_samples,
+                     "counts": _j_counts(svc.metric), "health": svc.health, "state": svc.state}
+        raw_partials = list(raw)
+        # the synchronous stage under the same planes, so the two ingest rates compare
+        sync = pt.MetricService(_p_w1(device), name="path-p/P1-sync", queue_size=64, deferred_publish=False)
+        made.append(sync)
+        sync_s = _p_serve(sync, inputs)
+        sync_merged = float(sync.finalize(300.0))
+        sync.stop()
+        out["P1"]["sync"] = {"records": _p_records(sync), "merged": sync_merged, "ingest_s": sync_s,
+                             "e2e_ms": _p_e2e(obs, sync)}
+        obs.disable()
+        obs.reset()
+        early_raw = []
+        early = pt.MetricService(_p_w1(device), name="path-p/P1-early",
+                                 partial_publish_fn=lambda record, partial: early_raw.append(partial))
+        made.append(early)
+        _p_serve(early, inputs[:K_CPU_STEPS])
+        early_merged = float(early.finalize(300.0))
+        out["P1"]["early"] = {"records": _p_records(early), "merged": early_merged,
+                              "partials": _p_partial_counts(early_raw)}
+        early.stop()
+        out["P1"]["s"] = time.perf_counter() - t0
+
+        # P2: batches of 512 events, a backlog under the processing lock, coalescing on and off
+        t0 = time.perf_counter()
+        small = []
+        for i in range(P2_STEPS):
+            s, y, t = inputs[i]
+            small += [(s[j:j + P2_BATCH], y[j:j + P2_BATCH], t[j:j + P2_BATCH]) for j in range(0, K_N, P2_BATCH)]
+        p2 = {}
+        for coalesce in (True, False):
+            svc = pt.MetricService(_p_w1(device), name=f"path-p/P2-{coalesce}", queue_size=len(small) + 4,
+                                   coalesce_max_batches=8 if coalesce else 1)
+            made.append(svc)
+            with svc._proc_lock:
+                for i, (s, y, t) in enumerate(small):
+                    svc.submit(s, y, event_time=t, seq=i)
+            t1 = time.perf_counter()
+            svc.flush(300.0)
+            drain_s = time.perf_counter() - t1
+            merged = float(svc.finalize(300.0))
+            p2[coalesce] = {"records": _p_records(svc), "merged": merged,
+                            "counts": _j_counts(svc.metric), "coalesced": svc.coalesced_batches,
+                            "drains": svc.drains, "processed": svc.processed, "drain_s": drain_s}
+            svc.stop()
+        out["P2"] = {"on": p2[True], "off": p2[False], "batches": len(small), "s": time.perf_counter() - t0}
+
+        # P3: the chaos soak: a late burst, an ingest stall and a persistent sync drop, uninterrupted and then
+        # preempted at ingest, restored into a fresh service and replayed from two batches before the snapshot
+        t0 = time.perf_counter()
+        guard = SyncGuard(deadline_s=1.0, max_retries=1, backoff_s=0.01, policy="degrade")
+        base = [faults.FaultSpec(kind="late_burst", call=P3_LATE_CALL, times=1, skew_s=P3_LATE_S, site=INGEST_SITE),
+                faults.FaultSpec(kind="ingest_stall", call=P3_STALL_CALL, times=1, duration_s=P3_STALL_S,
+                                 site=INGEST_SITE),
+                faults.FaultSpec(kind="drop", rate=1.0, times=10_000, site="host_gather")]
+        with faults.ChaosInjector(base, seed=0) as inj:
+            plain = pt.MetricService(_p_w1(device), name="path-p/P3-plain", guard=guard)
+            made.append(plain)
+            _p_serve(plain, inputs)
+            plain_merged = float(plain.finalize(300.0))
+            plain.stop()
+        injected = {k: v for k, v in inj.injected.items() if v}
+        preempt = faults.FaultSpec(kind="preempt", call=P3_PREEMPT_CALL, times=1, site=INGEST_SITE)
+        with faults.ChaosInjector(base + [preempt], seed=0):
+            killed = pt.MetricService(_p_w1(device), name="path-p/P3-killed", guard=guard)
+            made.append(killed)
+            died = None
+            try:
+                _p_serve(killed, inputs)
+            except (ServiceStoppedError, PreemptionError) as err:
+                died = type(err).__name__
+            snapshot = killed.snapshot()
+            before = _p_records(killed)
+            killed.stop()
+            restored = pt.MetricService(_p_w1(device), name="path-p/P3-restored", guard=guard)
+            made.append(restored)
+            restored.restore(snapshot)
+            start = snapshot["processed"] - 2
+            for i in range(start, len(inputs)):
+                restored.submit(*inputs[i][:2], event_time=inputs[i][2], seq=i)
+            restored.flush(300.0)
+            restored_merged = float(restored.finalize(300.0))
+            restored.stop()
+        out["P3"] = {"plain": _p_records(plain), "plain_merged": plain_merged, "plain_dropped": plain.metric.dropped_samples,
+                     "plain_health": plain.health, "injected": injected, "died": died, "state": killed.state,
+                     "processed": snapshot["processed"], "before": before, "after": _p_records(restored),
+                     "restored_merged": restored_merged, "replayed": restored.replayed_steps,
+                     "restored_dropped": restored.metric.dropped_samples, "s": time.perf_counter() - t0}
+
+        # P4: the fleet, uninterrupted and with a shard killed; one service over the union; the HeavyHitterFleet
+        t0 = time.perf_counter()
+        stream = _p_fleet_stream()
+        fleet = _p_fleet(device, stream, made)
+        kill = pt.serving.shard_for_key(stream[2][0], P4_SHARDS)
+        killed = _p_fleet(device, stream, made, kill_shard=kill)
+        union = pt.MetricService(_p4_factory(device)(), name="path-p/P4-union", queue_size=P4_BATCHES + 4)
+        made.append(union)
+        _p_serve(union, [(to(s), to(y), t) for _key, t, s, y in stream])
+        union_merged = float(union.finalize(300.0))
+        union.stop()
+        t1 = time.perf_counter()
+        hh = pt.HeavyHitterFleet(lambda: pt.HeavyHitters(pt.Accuracy(device=device), num_hot_slots=P4_HH_HOT,
+                                                         tail=P4_HH_TAIL), num_shards=P4_SHARDS)
+        keys = _p_g5_keys(P4_HH_STEPS)
+        rng = np.random.RandomState(65)
+        hh_submit_s = []
+        for step_keys in keys:
+            labels = (rng.rand(G5_N) < 0.3).astype(np.int64)
+            scores = rng.rand(G5_N).astype(np.float32)
+            t2 = time.perf_counter()
+            hh.submit(step_keys, to(scores), to(labels))
+            _sync(device)
+            hh_submit_s.append(time.perf_counter() - t2)
+        top = hh.compute_heavy_hitters(k=P4_HH_TOP)
+        out["P4"] = {"fleet": fleet, "killed": killed, "kill_shard": kill,
+                     "union": [{k: r[k] for k in ("window", "value")} for r in union.publications],
+                     "union_merged": union_merged, "hh_keys": keys,
+                     "hh_top": [{k: (float(v) if k == "value" else v) for k, v in r.items()} for r in top],
+                     "hh_bound": hh.tail_overcount_bound(), "hh_mass": hh.tail_mass(),
+                     "hh_shard_of": {r["key"]: hh.shard_of(r["key"]) for r in top}, "hh_submit_s": hh_submit_s,
+                     "hh_s": time.perf_counter() - t1, "s": time.perf_counter() - t0}
+        del hh
+
+        # P5: the store P1 banked into: native and coarse queries, latest, and one scrape parsed back
+        t0 = time.perf_counter()
+        span = (0.0, (W1_STEPS + 1) * W1_ADVANCE + W1_WINDOW_S)
+        queries = {res: store.query(time_range=span, resolution_s=res) for res in (None, 4 * W1_WINDOW_S,
+                                                                                  16 * W1_WINDOW_S)}
+        server = pt.ExpositionServer([store])
+        status, content_type, body = _p_scrape(server.url)
+        server.close()
+        server = None
+        out["P5"] = {"queries": queries, "latest": store.latest(), "raw": _p_partial_counts(raw_partials),
+                     "resident_bytes": store.resident_bytes(), "rollups": store.rollups,
+                     "banked": store.windows_banked, "evicted": store.evicted_buckets, "status": status,
+                     "content_type": content_type, "body": body, "store": store.label, "s": time.perf_counter() - t0}
+    finally:
+        if server is not None:
+            server.close()
+        for obj in made:
+            obj.stop(60.0)
+        drain_host_plane()
+        obs.disable()
+        obs.reset()
+    return out
+
+
+def _p_same_records(label, got, want, what="bit-equal"):
+    if [r["window"] for r in got] != [r["window"] for r in want]:
+        raise AssertionError(f"{label}: windows {[r['window'] for r in got]} against {[r['window'] for r in want]}")
+    for g, w in zip(got, want):
+        for key in w:
+            a, b = np.asarray(g[key]), np.asarray(w[key])
+            if not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+                raise AssertionError(f"{label}: window {w['window']} {key} {g[key]} against {w[key]} ({what})")
+
+
+def check_path_p(result, w1_epoch, device):
+    """Path P's checks (its CPU run of P1's first batches included); returns its timings."""
+    import torch
+
+    import metrics_tpu_torch as pt
+    from metrics_tpu_torch.serving import CONTENT_TYPE, shard_for_key
+
+    print(f"[19] path P: the serving plane over W1's stream ({W1_STEPS} batches of {K_N:,} events), bench.py's"
+          f" {P4_SHARDS}-shard fleet and retention ladder, G5's keys")
+    data = result["data"]
+    p1 = result["P1"]
+    steps, *_ = _k_oracle_route([b["t"] for b in data], W1_WINDOW_S, W1_WINDOW_S, W1_WINDOWS, W1_LATENESS)
+    windows = [r["window"] for r in p1["records"]]
+    oracle = _k_per_window(steps, windows, _p_hist_fold(data))
+    _check(windows == sorted(set(windows)) and windows == sorted(p1["partials"]) and len(windows) >= W1_WINDOWS,
+           f"P1: windows {windows} published once each, in order, with their partials")
+    finals = [r["final"] for r in p1["records"]]
+    for r in p1["records"]:
+        w = r["window"]
+        counts, rows, final = p1["partials"][w]
+        if not (np.array_equal(counts, oracle[w]) and rows == oracle[w].sum() and final == r["final"]):
+            raise AssertionError(f"P1 window {w}: published counts differ from the numpy router's")
+        alone = pt.AUROC(approx="sketch", device=device)
+        alone.hist.counts.copy_(torch.from_numpy(oracle[w]))
+        if not np.array_equal(r["value"], _j_host(alone.compute()), equal_nan=True):
+            raise AssertionError(f"P1 window {w}: value {r['value']} against the oracle counts' {float(alone.compute())}")
+    _check(not any(r["degraded"] for r in p1["records"]) and p1["health"] == "healthy" and p1["state"] == "stopped"
+           and p1["merged"] == w1_epoch,
+           f"P1: every window's (label, bin) counts bit-equal to the numpy router's, each value bit-equal to AUROC"
+           f" over those counts; {finals.count(True)} final, {finals.count(False)}"
+           f" flushed by finalize; none degraded; the final merged value {p1['merged']:.6f} equals path K's W1 epoch")
+    _p_same_records("P1 synchronous stage", p1["sync"]["records"], p1["records"])
+    _check(p1["sync"]["merged"] == p1["merged"], "P1: the synchronous stage's records and merged value bit-equal to"
+           " the deferred stage's")
+    cpu = pt.MetricService(_p_w1(torch.device("cpu")), name="path-p/P1-cpu")
+    cpu_raw = []
+    cpu.partial_publish_fn = lambda record, partial: cpu_raw.append(partial)
+    _p_serve(cpu, [(torch.from_numpy(b["scores"]), torch.from_numpy(b["labels"]), b["t"]) for b in data[:K_CPU_STEPS]])
+    cpu_merged = float(cpu.finalize(300.0))
+    cpu.stop()
+    early = p1["early"]
+    cpu_partials = _p_partial_counts(cpu_raw)
+    same = sorted(cpu_partials) == sorted(early["partials"]) and all(
+        np.array_equal(cpu_partials[w][0], early["partials"][w][0]) and cpu_partials[w][1:] == early["partials"][w][1:]
+        for w in cpu_partials)
+    close = np.allclose([r["merged"] for r in early["records"]] + [early["merged"]],
+                        [float(r["merged"]) for r in cpu.publications] + [cpu_merged], rtol=RTOL_K, atol=0.0)
+    _check(same and close, f"P1: the card's first {K_CPU_STEPS} batches publish the CPU run's partials bit for bit and"
+           f" its merged views within rtol {RTOL_K} ({early['merged']:.6f} / {cpu_merged:.6f})")
+    e2e = [x for x in p1["e2e_ms"] if x is not None]
+    sync_e2e = [x for x in p1["sync"]["e2e_ms"] if x is not None]
+    meter = p1["selfmeter"].get("e2e", {})
+    print(f"    P1 ingest, spans, counters and the ledger on: {W1_STEPS / p1['ingest_s']:.1f} batches/s,"
+          f" {W1_STEPS * K_N / p1['ingest_s']:,.0f} events/s deferred ({p1['ingest_s']:.3f} s to flush),"
+          f" {W1_STEPS / p1['sync']['ingest_s']:.1f} batches/s synchronous; lifecycle e2e (close -> publish) ms a"
+          f" window {[round(x, 3) for x in e2e]} (p50 {meter.get('p50_ms', float('nan')):.3f}, p99"
+          f" {meter.get('p99_ms', float('nan')):.3f}), synchronous {[round(x, 3) for x in sync_e2e]}; queue"
+          f" high-water {p1['queue_max']} of 64, publish-pipeline high-water {p1['deferred_max']}")
+
+    p2 = result["P2"]
+    on, off = p2["on"], p2["off"]
+    _p_same_records("P2 coalescing on against off", on["records"], off["records"])
+    same_counts = all(np.array_equal(on["counts"][k], off["counts"][k]) for k in off["counts"])
+    _check(same_counts and on["merged"] == off["merged"] and off["coalesced"] == 0 and on["coalesced"] > 0
+           and on["processed"] == off["processed"] == p2["batches"],
+           f"P2: {p2['batches']} batches of {P2_BATCH} events: coalescing on bit-equal to off (records, merged value,"
+           f" slabs); {on['coalesced']} batches in spans over {on['drains']} drains against {off['drains']}")
+    print(f"    P2 drain: {p2['batches'] * P2_BATCH / on['drain_s']:,.0f} events/s coalesced, "
+          f"{p2['batches'] * P2_BATCH / off['drain_s']:,.0f} events/s one batch a drain")
+
+    p3 = result["P3"]
+    _check(p3["died"] is not None and p3["state"] == "preempted" and p3["processed"] == P3_PREEMPT_CALL,
+           f"P3: the seeded preempt killed the worker at ingest call {P3_PREEMPT_CALL} ({p3['died']}); the snapshot"
+           f" holds {p3['processed']} batches")
+    published = p3["before"] + p3["after"]
+    _p_same_records("P3 restore and replay against the run that was not interrupted", published, p3["plain"])
+    _check(p3["restored_merged"] == p3["plain_merged"] and p3["replayed"] == 2
+           and p3["restored_dropped"] == p3["plain_dropped"] > 0
+           and all(r["degraded"] for r in p3["plain"]) and p3["plain_health"] == "degraded"
+           and p3["injected"].get("late_burst") == 1 and p3["injected"].get("ingest_stall") == 1,
+           f"P3: under {p3['injected']}: every one of {len(p3['plain'])} publishes degraded; restore and replay"
+           f" (2 batches of overlap, no-ops) bit-equal to the uninterrupted run; {p3['plain_dropped']:,} events of"
+           f" the late burst dropped in both")
+
+    p4 = result["P4"]
+    fleet, killed = p4["fleet"], p4["killed"]
+    union = p4["union"]
+    _check([r["window"] for r in fleet["records"]] == [r["window"] for r in union]
+           and all(np.array_equal(np.asarray(a["value"]), np.asarray(b["value"])) for a, b in zip(fleet["records"], union))
+           and fleet["merged"] == p4["union_merged"] and not any(r["degraded"] for r in fleet["records"])
+           and fleet["recovered"] == 0 and fleet["replayed"] == 0,
+           f"P4: {P4_SHARDS} shards, {P4_BATCHES} tenant batches of {P4_BATCH:,}: no shard recovered or replayed;"
+           f" {len(union)} merged records bit-equal"
+           f" to one service over the union ({fleet['s']:.2f} s, {P4_BATCHES * P4_BATCH / fleet['s']:,.0f} events/s)")
+    _p_same_records("P4 fleet with shard killed and recovered", killed["records"], fleet["records"])
+    _check(killed["recovered"] == 1 and killed["replayed"] >= 1 and killed["merged"] == fleet["merged"],
+           f"P4: shard {p4['kill_shard']} killed at its ingest call {P4_KILL_CALL} and recovered: no window lost or"
+           f" merged twice, {killed['replayed']} replayed batches no-ops")
+    truth = np.bincount(np.concatenate(p4["hh_keys"]))
+    top = p4["hh_top"]
+    ok = len(top) == P4_HH_TOP and [r["count"] for r in top] == sorted((r["count"] for r in top), reverse=True)
+    for r in top:
+        ok &= r["shard"] == shard_for_key(r["key"], P4_SHARDS) == p4["hh_shard_of"][r["key"]]
+        want = int(truth[r["key"]])
+        ok &= r["count"] == want if r["exact"] else want <= r["count"] <= want + p4["hh_bound"]
+    _check(ok, f"P4: HeavyHitterFleet over {P4_HH_STEPS} x {G5_N:,} Zipf(1.1) keys: top {P4_HH_TOP} on their home"
+           f" shards, exact counts equal np.bincount's ({sum(r['exact'] for r in top)} exact), the rest within the"
+           f" {p4['hh_bound']:.1f} certificate; submit {[round(x, 2) for x in p4['hh_submit_s']]} s a step")
+
+    p5 = result["P5"]
+    raw = p5["raw"]
+    checked = 0
+    for res, points in p5["queries"].items():
+        for point in points:
+            covered = [w for w in raw if point["start_s"] <= w * W1_WINDOW_S < point["start_s"] + point["seconds"]]
+            counts = sum(raw[w][0] for w in covered)
+            alone = pt.AUROC(approx="sketch", device=device)
+            alone.hist.counts.copy_(torch.from_numpy(counts))
+            if not (point["windows"] == len(covered) and point["rows"] == sum(raw[w][1] for w in covered)
+                    and np.array_equal(point["value"], _j_host(alone.compute()), equal_nan=True)):
+                raise AssertionError(f"P5 resolution {res}: point at {point['start_s']} s differs from the hand merge")
+            checked += 1
+    _check(checked and p5["rollups"] > 0 and p5["banked"] == len(raw),
+           f"P5: {checked} query points on ladder {P5_LADDER} bit-equal to hand merges of P1's raw partials;"
+           f" {p5['banked']} windows banked, {p5['rollups']} roll-ups, {p5['resident_bytes']:,} resident bytes")
+    kinds, samples = _p_parse(p5["body"])
+    latest = [s for s in samples if s[0] == "metrics_tpu_retained_latest" and s[1].get("store") == p5["store"]]
+    want = p5["latest"]["value"]
+    _check(p5["status"] == 200 and p5["content_type"] == CONTENT_TYPE and kinds.get("metrics_tpu_fault") == "counter"
+           and len(latest) == 1 and float(latest[0][2]) == float(want),
+           f"P5: one scrape of GET /metrics: 200, {CONTENT_TYPE}, {len(kinds)} families, {len(samples)} samples;"
+           f" metrics_tpu_retained_latest {latest[0][2] if latest else None} equals store.latest()")
+    return {"P1_batches_per_s": W1_STEPS / p1["ingest_s"], "P1_events_per_s": W1_STEPS * K_N / p1["ingest_s"],
+            "P1_sync_batches_per_s": W1_STEPS / p1["sync"]["ingest_s"], "P1_e2e_ms": e2e, "P1_sync_e2e_ms": sync_e2e,
+            "P2_events_per_s": {"on": p2["batches"] * P2_BATCH / on["drain_s"],
+                                "off": p2["batches"] * P2_BATCH / off["drain_s"]},
+            "P4_events_per_s": P4_BATCHES * P4_BATCH / fleet["s"],
+            "s": {k: result[k]["s"] for k in ("P1", "P2", "P3", "P4", "P5")}}
+
+
 def _torch_of(x):
     import torch
 
@@ -7398,6 +7936,10 @@ def main() -> int:
         "path_o2_ms_per_step": paths["o"]["O2_ms_per_step"],
         "path_o2_update_device_ms": paths["o"]["O2_update_device_ms"],
         "path_o2_profiled_ms": paths["o"]["O2_profiled_ms"],
+        "path_p_batches_per_s": paths["p"]["P1_batches_per_s"],
+        "path_p_events_per_s": paths["p"]["P1_events_per_s"],
+        "path_p_e2e_ms": paths["p"]["P1_e2e_ms"],
+        "path_p_s": paths["p"]["s"],
     }
     print(f"    path O2: fenced metric.forward device ms a step (K1 inside, one launch a member)"
           f" {[round(x, 4) for x in paths['o']['O2_update_device_ms']]} beside K1's phase-3 kernel ms {k1['ms']:.4f}")

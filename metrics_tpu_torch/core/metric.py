@@ -109,7 +109,7 @@ from metrics_tpu_torch.parallel.sync import (
     merge_values,
 )
 from metrics_tpu_torch.utils import debug
-from metrics_tpu_torch.utils.data import tree_stack
+from metrics_tpu_torch.utils.data import host_copy, tree_stack
 from metrics_tpu_torch.utils.device import check_same_device, resolve_device
 from metrics_tpu_torch.utils.exceptions import StateCorruptionError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -1137,14 +1137,15 @@ class Metric(nn.Module, ABC):
         for key in self._defaults:
             if self._persistent[key]:
                 value = getattr(self, key)
+                # host copies, never views: the planes update CPU states in place
                 if isinstance(value, list):
-                    destination[prefix + key] = [v.detach().cpu().numpy() for v in value]
+                    destination[prefix + key] = [host_copy(v) for v in value]
                 elif isinstance(value, PaddedBuffer):
-                    destination[prefix + key] = {"data": value.data.cpu().numpy(), "count": value.count.cpu().numpy()}
+                    destination[prefix + key] = {"data": host_copy(value.data), "count": host_copy(value.count)}
                 elif is_sketch(value):
-                    destination[prefix + key] = {"sketch_counts": value.counts.cpu().numpy()}
+                    destination[prefix + key] = {"sketch_counts": host_copy(value.counts)}
                 else:
-                    destination[prefix + key] = value.detach().cpu().numpy()
+                    destination[prefix + key] = host_copy(value)
         destination[prefix + "_count_bound"] = np.asarray(self._count_bound, dtype=np.int64)
         destination[prefix + "_epoch_watermark"] = np.asarray(self._epoch_watermark, dtype=np.int64)
         return destination

@@ -92,6 +92,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -565,9 +566,12 @@ def state_nbytes(state: Any) -> int:
     """Byte footprint of one state (a dict, list, tuple, buffer or sketch of
     tensors): ``numel * element_size`` of every tensor in it, read from the
     tensors' metadata (no device work). A buffer counts its data and count, a
-    sketch its counts, a list state each element."""
+    sketch its counts, a list state each element; host numpy arrays (banked
+    partials) count as the JAX package counts its array leaves."""
     if isinstance(state, torch.Tensor):
         return int(state.numel()) * int(state.element_size())
+    if isinstance(state, (np.ndarray, np.generic)):
+        return int(state.size) * int(state.dtype.itemsize)
     if isinstance(state, dict):
         return sum(state_nbytes(v) for v in state.values())
     if isinstance(state, (list, tuple)):  # NamedTuples (buffers, sketches) included

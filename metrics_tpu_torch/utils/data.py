@@ -55,6 +55,33 @@ def upcast_accum(x: Tensor) -> Tensor:
     return x
 
 
+def host_copy(x: Tensor) -> np.ndarray:
+    """``x`` as a host numpy array that owns its memory: ``.cpu()`` already
+    copies a card tensor, while a CPU tensor's ``.numpy()`` is a view of the
+    live storage that later in-place updates would change, so it is copied.
+    One transfer a tensor."""
+    x = x.detach()
+    return x.cpu().numpy() if x.device.type != "cpu" else x.numpy().copy()
+
+
+def host_tree(tree: Any) -> Any:
+    """A tree as host numpy (publication values, merged partial states):
+    every tensor of a (nested, named) tuple, list or dict copied to the host
+    with ``host_copy``, every other leaf ``np.asarray``'d; a named tuple,
+    such as a sketch, keeps its type."""
+    if isinstance(tree, Tensor):
+        return host_copy(tree)
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(host_tree(v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(host_tree(v) for v in tree)
+    if isinstance(tree, list):
+        return [host_tree(v) for v in tree]
+    return np.asarray(tree)
+
+
 def is_batched(x: Any) -> bool:
     """Whether ``x`` is a tensor seen inside ``torch.func.vmap`` (a batched
     view whose values cannot be read back to the host). The counterpart of the

@@ -75,7 +75,7 @@ from metrics_tpu_torch.parallel.slab import (
     slab_scatter,
     slab_sync_reduce,
 )
-from metrics_tpu_torch.utils.data import is_batched
+from metrics_tpu_torch.utils.data import host_copy, is_batched
 from metrics_tpu_torch.utils.device import check_same_device
 from metrics_tpu_torch.utils.exceptions import TracingUnsupportedError
 from metrics_tpu_torch.utils.prints import rank_zero_warn_once
@@ -528,8 +528,8 @@ class Keyed(Metric):
         rows = state.pop(_ROWS_STATE)
         out: Dict[str, Any] = {}
         for name, value in state.items():
-            out[name] = type(value)(value.counts.cpu().numpy()) if is_sketch(value) else value.cpu().numpy()
-        return {"version": PARTIAL_SCHEMA_VERSION, "rows": rows.cpu().numpy(), "state": out}
+            out[name] = type(value)(host_copy(value.counts)) if is_sketch(value) else host_copy(value)
+        return {"version": PARTIAL_SCHEMA_VERSION, "rows": host_copy(rows), "state": out}
 
     def value_from_partials(self, partials: Sequence[Dict[str, Any]]) -> Any:
         """All K per-segment values over merged partials (addition, min or max

@@ -16,6 +16,7 @@ import torch
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.parallel.buffer import PaddedBuffer
 from metrics_tpu_torch.parallel.sketch import is_sketch
+from metrics_tpu_torch.utils.data import host_copy
 
 __all__ = ["Running"]
 
@@ -95,12 +96,12 @@ class Running(Metric):
 def _encode_leaf(value: Any) -> Any:
     """One delta leaf as host data, in the base ``state_dict``'s conventions."""
     if isinstance(value, PaddedBuffer):
-        return {"data": value.data.cpu().numpy(), "count": value.count.cpu().numpy()}
+        return {"data": host_copy(value.data), "count": host_copy(value.count)}
     if is_sketch(value):
-        return {"sketch_counts": value.counts.cpu().numpy()}
+        return {"sketch_counts": host_copy(value.counts)}
     if isinstance(value, list):
-        return [v.detach().cpu().numpy() for v in value]
-    return value.detach().cpu().numpy()
+        return [host_copy(v) for v in value]
+    return host_copy(value)
 
 
 def _decode_leaf(value: Any, template: Any, device: torch.device) -> Any:

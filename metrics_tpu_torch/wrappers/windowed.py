@@ -78,7 +78,7 @@ from metrics_tpu_torch.parallel.slab import (
     slab_rows_spec,
     slab_sync_reduce,
 )
-from metrics_tpu_torch.utils.data import is_batched
+from metrics_tpu_torch.utils.data import host_copy, is_batched
 from metrics_tpu_torch.utils.device import check_same_device
 from metrics_tpu_torch.utils.exceptions import TracingUnsupportedError
 from metrics_tpu_torch.wrappers.keyed import Keyed, _mask_untouched, _tree_map, per_sample_deltas, reset_rows_, sample_chunks
@@ -645,9 +645,10 @@ class Windowed(Metric):
         rows = state.pop(_ROWS_STATE)
         out: Dict[str, Any] = {}
         for name, value in state.items():
-            out[name] = type(value)(value.counts[slot].cpu().numpy()) if is_sketch(value) else value[slot].cpu().numpy()
+            # host copies: the roll resets a recycled slot in place, and a banked partial must outlive it
+            out[name] = type(value)(host_copy(value.counts[slot])) if is_sketch(value) else host_copy(value[slot])
         return {"version": PARTIAL_SCHEMA_VERSION, "window": int(window), "window_start_s": self.window_start(window),
-                "rows": rows[slot].cpu().numpy(), "state": out}
+                "rows": host_copy(rows[slot]), "state": out}
 
     def _empty_partial(self) -> Dict[str, Any]:
         """The identity partial: per-slot defaults and zero rows."""

@@ -208,6 +208,7 @@ def test_forward_update_sync_span_nesting_equals_jax():
     m.dist_sync_fn = jm.dist_sync_fn = gather
     m.dist_sync_on_step = jm.dist_sync_on_step = True
     pobs.enable()
+    jobs.reset()  # the JAX tracer is process-wide: an earlier test's spans must not count here
     jobs.enable()
     try:
         m(torch.arange(3.0))
@@ -409,6 +410,7 @@ def _loop_records(package, obs):
         col = pt.MetricCollection([pt.Accuracy(**CPU), pt.F1(num_classes=4, average="macro", **CPU)])
     else:
         col = mt.MetricCollection([mt.Accuracy(), mt.F1(num_classes=4, average="macro")])
+    obs.reset()  # read from an empty buffer: an earlier test may have left spans behind
     obs.enable()
     try:
         values = []
@@ -442,3 +444,23 @@ def test_span_names_counts_and_nesting_equal_jax_on_a_collection_loop():
     assert sorted((r.name, r.parent, r.depth, (r.attrs or {}).get("metric")) for r in got) == sorted(
         (r.name, r.parent, r.depth, (r.attrs or {}).get("metric")) for r in want)
     np.testing.assert_allclose([list(v.values()) for v in values], [list(v.values()) for v in jvalues], rtol=1e-6)
+
+
+@pytest.mark.parametrize("reader", ["forward_nesting", "collection_loop"])
+def test_jax_side_reads_start_empty_after_a_span_left_behind(reader):
+    """The JAX tracer's buffer is process-wide: a span an earlier test left in it
+    (observability switched off without a reset) must not reach the comparisons
+    that read it."""
+    jobs.enable()
+    with jobs.span("leftover"):
+        pass
+    jobs.disable()
+    assert [r.name for r in jobs.records()] == ["leftover"]
+    try:
+        if reader == "forward_nesting":
+            test_forward_update_sync_span_nesting_equals_jax()
+        else:
+            test_span_names_counts_and_nesting_equal_jax_on_a_collection_loop()
+    finally:
+        jobs.disable()
+        jobs.reset()
