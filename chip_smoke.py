@@ -6980,6 +6980,12 @@ O_SNAPSHOT_KEYS = (
     "wm_stragglers",
 )
 O_UPDATE_PHASES = ("collection.group_update", "metric.update", "metric.forward")  # where a step's K1 launches land
+# the device-track scopes K1's kernels may lie in: the track gives a kernel to its innermost scope, and a fused
+# forward's update runs inside metric.forward_update
+O_UPDATE_SCOPES = (*O_UPDATE_PHASES, "metric.forward_update")
+# the port's own step spans: no fence of their own (a step's root, the host-only lockstep walk, and the batch delta
+# that the enclosing metric.forward fences)
+O_UNFENCED = ("collection.forward", "collection.lockstep", "metric.forward_update")
 O1_ORDER = ("off", "spans", "fenced", "fenced", "spans", "off")
 
 
@@ -6987,14 +6993,19 @@ def _o_phase_counts(collection, steps):
     """The span counts path A's collection records over ``steps`` forwards and one epoch ``compute()``: per step one
     ``collection.group_update`` and one ``collection.step_sync`` a shared compute group, one ``metric.forward`` and
     one ``metric.sync_state`` a singleton group, one ``metric.compute`` a member; at the epoch one
-    ``collection.host_sync`` a shared group, the singletons' own sync and every member's compute."""
+    ``collection.host_sync`` a shared group, the singletons' own sync and every member's compute. The port's own:
+    one ``collection.forward`` a step, a ``collection.lockstep`` check and record a step and the epoch sync's check,
+    one ``metric.forward_update`` a step a singleton on the fused forward."""
     groups = list(collection.compute_groups.values())
     shared = sum(1 for g in groups if len(g) > 1)
     singles = sum(1 for g in groups if len(g) == 1)
+    fused = sum(1 for g in groups if len(g) == 1 and collection[g[0]]._fusable)
     members = sum(len(g) for g in groups)
-    return {"collection.group_update": steps * shared, "collection.step_sync": steps * shared,
-            "metric.forward": steps * singles, "metric.sync_state": (steps + 1) * singles,
-            "metric.compute": (steps + 1) * members, "collection.host_sync": shared, "collection.compute": 1}
+    counts = {"collection.group_update": steps * shared, "collection.step_sync": steps * shared,
+              "metric.forward": steps * singles, "metric.sync_state": (steps + 1) * singles,
+              "metric.compute": (steps + 1) * members, "collection.host_sync": shared, "collection.compute": 1,
+              "collection.forward": steps, "collection.lockstep": 2 * steps + 1, "metric.forward_update": steps * fused}
+    return {name: n for name, n in counts.items() if n}
 
 
 def _o_leg(device, a_batches, leg, trace_dir):
@@ -7098,7 +7109,7 @@ def _o_kernel_scopes(trace_path):
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     scopes = [e for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_user_annotation"
-              and e.get("name") in O_UPDATE_PHASES]
+              and e.get("name") in O_UPDATE_SCOPES]
     kernels = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
                       and "count_kernel" in e.get("name", "")), key=lambda e: e["ts"])
     inside = []
@@ -7256,7 +7267,8 @@ def check_path_o(result, a_values, a_epoch, a_ms, b_values):
                f"path O1 {leg}: summarize() has state_bytes ({run['summary']['metric.sync_state']['state_bytes']})"
                f" and the gauge {snap['state_bytes']}")
     fenced = first["fenced"]
-    phases = [row for name, row in fenced["summary"].items() if name.startswith(("collection.", "metric."))]
+    phases = [row for name, row in fenced["summary"].items()
+              if name.startswith(("collection.", "metric.")) and name not in O_UNFENCED]
     _check(all(row["device_ms"] > 0 for row in phases),
            "path O1 fenced: every phase span of summarize() carries device_ms")
     table = fenced["table"]

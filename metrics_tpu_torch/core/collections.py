@@ -48,7 +48,11 @@ Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
   "yes"`` on the deferred epoch), ``collection.forward_batched`` and
   ``collection.compute`` (``{"members": n}``). The port has no fused
   collection step, so ``collection.fused_step`` has no site: ``forward`` is
-  the JAX package's eager grouped path.
+  the JAX package's eager grouped path;
+* the port's own spans: ``collection.forward`` (``{"members": n}``), the
+  root of one step, and ``collection.lockstep`` (``{"elements": n}``, the
+  list elements walked) around each lockstep check and record, in
+  ``forward``, ``update`` and the epoch sync of ``compute``.
 """
 from copy import deepcopy
 from typing import Any, Dict, List, Optional, Set, Tuple, Union
@@ -79,6 +83,12 @@ def _same_refs(a: Any, b: Any) -> bool:
     if type(a) is tuple and type(b) is tuple:
         return len(a) == len(b) and all(_same_refs(x, y) for x, y in zip(a, b))
     return a is b
+
+
+def _list_elements(refs: Dict[str, tuple]) -> int:
+    """The list-state elements the members' recorded refs hold (the
+    ``collection.lockstep`` span's attr)."""
+    return sum(len(v) for member in refs.values() for v in member if type(v) is tuple)
 
 
 class MetricCollection(nn.ModuleDict):
@@ -148,11 +158,24 @@ class MetricCollection(nn.ModuleDict):
     # ------------------------------------------------------ lockstep tracking
     def _lockstep_check(self) -> None:
         """Mark members whose states were written outside the collection."""
+        if TRACE.enabled:
+            with _span("collection.lockstep", {"elements": _list_elements(self._lockstep_refs)}):
+                self._lockstep_compare()
+            return
+        self._lockstep_compare()
+
+    def _lockstep_compare(self) -> None:
         for k, m in self.items():
             if not _same_refs(self._lockstep_refs.get(k), _state_refs(m)):
                 self._diverged.add(k)
 
     def _lockstep_record(self) -> None:
+        if TRACE.enabled:
+            attrs: Dict[str, Any] = {}
+            with _span("collection.lockstep", attrs):
+                self._lockstep_refs = {k: _state_refs(m) for k, m in self.items()}
+                attrs["elements"] = _list_elements(self._lockstep_refs)
+            return
         self._lockstep_refs = {k: _state_refs(m) for k, m in self.items()}
 
     # ---------------------------------------------------------- compute groups
@@ -239,7 +262,15 @@ class MetricCollection(nn.ModuleDict):
         are filtered per member signature. Input formatting is memoized for
         the step, so groups over the same ``(preds, target)`` format it once.
         This is the JAX package's eager grouped forward; the port has no fused
-        collection step, so no ``collection.fused_step`` span is recorded."""
+        collection step, so no ``collection.fused_step`` span is recorded.
+        Traced, the step is one ``collection.forward`` span, the root of its
+        member and lockstep spans."""
+        if TRACE.enabled:
+            with _span("collection.forward", {"members": len(self)}):
+                return self._forward(*args, **kwargs)
+        return self._forward(*args, **kwargs)
+
+    def _forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         self._lockstep_check()
         with shared_input_format():
             out = self._forward_eager_body(*args, **kwargs)

@@ -668,7 +668,11 @@ class Metric(nn.Module, ABC):
         check_same_device(self.device, *args, *kwargs.values())
         self._note_rows(args, kwargs)
         revert_to = self._pre_update_snapshot()
-        delta = self._run_update_on_state(self.init_state(), *args, **kwargs)
+        if TRACE.enabled:
+            with _span("metric.forward_update", {"metric": type(self).__name__}):
+                delta = self._run_update_on_state(self.init_state(), *args, **kwargs)
+        else:
+            delta = self._run_update_on_state(self.init_state(), *args, **kwargs)
         self._set_state(self.merge_states(self._current_state(), delta))
         self._guard_state_integrity("forward", revert_to)
         if not self.compute_on_step:

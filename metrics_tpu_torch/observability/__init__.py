@@ -9,7 +9,10 @@ nothing:
   tracer (context manager and decorator, thread-local nesting) over the hot
   paths: ``Metric.forward`` / ``update`` / ``sync_state`` / ``compute``, the
   collection's group update, step sync, host sync and compute, the deferred
-  plane, the sharded launches.
+  plane, the sharded launches; and the port's own around a collection step
+  (``collection.forward``, ``collection.lockstep``,
+  ``metric.forward_update``), each span with its id, its parent's and its
+  root's.
 - :mod:`~metrics_tpu_torch.observability.counters`: collective calls and
   bytes, states synced, faults, the deferred and sparse ledgers, the
   wrappers' gauges, ``state_bytes``, the health gauges and the cache pairs,
@@ -24,7 +27,9 @@ nothing:
   ``compiled=yes/no`` on the spans they land in.
 - :mod:`~metrics_tpu_torch.observability.devtime`: per-phase fencing on the
   CUDA streams a phase's outputs live on (``device_ms``),
-  ``device_time_table()``, and ``from_profiler_trace()``.
+  ``device_time_table()``, ``from_profiler_trace()``, and
+  ``idle_attribution()``: a profiled window's device-idle time by the span
+  and layer the host was in, on the profiler's clock.
 - :mod:`~metrics_tpu_torch.observability.lifecycle`: the window-lifecycle
   ledger (``first_event`` ... ``banked``) and flow ids.
 - :mod:`~metrics_tpu_torch.observability.selfmeter`: ``LatencyMeter``

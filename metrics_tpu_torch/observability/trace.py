@@ -29,6 +29,7 @@ also carries ``compiled=yes/no`` (did a kernel build or load land inside it)
 and, when the build took time, ``compile_ms``.
 """
 import functools
+import itertools
 import threading
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
@@ -48,7 +49,13 @@ __all__ = [
 
 
 class SpanRecord(NamedTuple):
-    """One finished span (times in ns on the ``perf_counter_ns`` clock)."""
+    """One finished span (times in ns on the ``perf_counter_ns`` clock).
+
+    The first seven fields are the JAX package's. ``span_id`` is unique in the
+    process; ``parent_id`` is the enclosing span's id, and ``root_id`` the id
+    of the outermost span open on the thread at entry (its own at top level),
+    so every span of one collection step carries the id of its
+    ``collection.forward``. Records built by hand default them to 0 / None."""
 
     name: str
     start_ns: int
@@ -57,6 +64,9 @@ class SpanRecord(NamedTuple):
     depth: int  # nesting depth within the thread at entry (0 = top level)
     parent: Optional[str]  # innermost enclosing span name, if any
     attrs: Optional[Dict[str, Any]]
+    span_id: int = 0
+    parent_id: Optional[int] = None
+    root_id: int = 0
 
     @property
     def duration_ms(self) -> float:
@@ -138,11 +148,15 @@ COMPILE_PROBE: Optional[Callable[[], tuple]] = None
 # around the kernels the span enqueued). None outside a session.
 PROFILER_SCOPE: Optional[Callable[[str], Any]] = None
 
+# span ids, unique in the process (``next`` on a count is atomic under the GIL)
+_IDS = itertools.count(1)
+
 
 class _Span:
     """An open span; created only while tracing is enabled."""
 
-    __slots__ = ("name", "attrs", "_start_ns", "_depth", "_parent", "_compile0", "_scope")
+    __slots__ = ("name", "attrs", "_start_ns", "_depth", "_parent", "_compile0", "_scope", "_id", "_parent_id",
+                 "_root_id")
 
     def __init__(self, name: str, attrs: Optional[Dict[str, Any]]) -> None:
         self.name = name
@@ -163,7 +177,11 @@ class _Span:
     def __enter__(self) -> "_Span":
         stack = TRACE._thread_stack()
         self._depth = len(stack)
-        self._parent = stack[-1].name if stack else None
+        self._id = next(_IDS)
+        if stack:
+            self._parent, self._parent_id, self._root_id = stack[-1].name, stack[-1]._id, stack[0]._id
+        else:
+            self._parent, self._parent_id, self._root_id = None, None, self._id
         stack.append(self)
         probe = COMPILE_PROBE
         self._compile0 = probe() if probe is not None else None
@@ -204,6 +222,9 @@ class _Span:
                 self._depth,
                 self._parent,
                 self.attrs,
+                self._id,
+                self._parent_id,
+                self._root_id,
             )
         )
         return False

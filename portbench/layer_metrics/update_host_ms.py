@@ -1,0 +1,12 @@
+"""Host self milliseconds a unit in the batch updates (``metric.forward_update``,
+``metric.update``, ``collection.group_update``), by ``devtime.LAYER_OF_SPAN``:
+each span's duration less what its child spans cover, from the port's span
+records of the profiled traced units, the mean over the units
+(``portbench/span_layers.py``)."""
+from portbench import span_layers
+
+UNIT = "ms"
+
+
+def read(rec):
+    return span_layers.per_unit(rec, "host_self_ms", "update")

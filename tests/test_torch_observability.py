@@ -59,7 +59,31 @@ CPU = {"device": "cpu"}
 # span names of one package that the other never records, with the reason
 _DIFFERENT_BY_DESIGN = {
     "collection.fused_step": "JAX only: the port has no fused collection step (its forward is the eager grouped path)",
+    "collection.forward": "port only: the root of one collection step, so every span of a step shares its id",
+    "collection.lockstep": "port only: the host-side lockstep check and record, which the JAX package's fused step"
+                           " does not walk",
+    "metric.forward_update": "port only: the batch delta inside the fused forward, where the JAX package's forward"
+                             " records no update span",
 }
+
+
+def _without_by_design(records):
+    """(name, parent, depth, metric) of each record whose name the JAX package also records, read as if the
+    port's own spans were not there: the parent is the nearest enclosing span the JAX package records, the depth
+    counts only such spans."""
+    by_id = {r.span_id: r for r in records}
+    out = []
+    for r in records:
+        if r.name in _DIFFERENT_BY_DESIGN:
+            continue
+        ancestors = []
+        parent = by_id.get(r.parent_id)
+        while parent is not None:
+            if parent.name not in _DIFFERENT_BY_DESIGN:
+                ancestors.append(parent.name)
+            parent = by_id.get(parent.parent_id)
+        out.append((r.name, ancestors[0] if ancestors else None, len(ancestors), (r.attrs or {}).get("metric")))
+    return out
 
 
 @pytest.fixture(autouse=True)
@@ -125,7 +149,10 @@ def test_disabled_records_nothing():
 def test_no_site_builds_an_attrs_dict_while_disabled(monkeypatch):
     """Every instrumented module's ``span`` is replaced by a recorder: while
     tracing is off, each call it sees passes ``attrs=None`` (most sites do not
-    call it at all)."""
+    call it at all). The same calls with tracing on reach the recorder from
+    every site of a collection step (``collection.forward``,
+    ``collection.lockstep`` in forward, update and compute,
+    ``metric.forward_update``), so the loop covers them."""
     seen = []
 
     def recorder(name, attrs=None):
@@ -145,16 +172,27 @@ def test_no_site_builds_an_attrs_dict_while_disabled(monkeypatch):
         m.dist_sync_fn, m.dist_sync_on_step = gather, True
     lagged = pt.Accuracy(dist_sync_on_step=True, dist_sync_fn=gather, **CPU)
     lagged.sync_lag = 1  # library metrics take the attribute
-    for _ in range(3):
-        p, t = torch.from_numpy(_probs(rng, 16, 4)), torch.from_numpy(rng.integers(0, 4, 16))
-        col(p, t)
-        lagged(p, t)
-    col.compute()
-    lagged.compute()
-    col.deferred_epoch_sync = True
-    col.compute()
+
+    def loop():
+        for _ in range(3):
+            p, t = torch.from_numpy(_probs(rng, 16, 4)), torch.from_numpy(rng.integers(0, 4, 16))
+            col(p, t)
+            col.update(p, t)
+            lagged(p, t)
+        col.compute()
+        lagged.compute()
+        col.deferred_epoch_sync = True
+        col.compute()
+        col.deferred_epoch_sync = False
+
+    loop()
     assert all(attrs is None for _name, attrs in seen), seen
     assert pobs.records() == []
+    pobs.enable()
+    loop()
+    pobs.disable()
+    traced = collections.Counter(name for name, attrs in seen if attrs is not None)
+    assert {"collection.forward", "collection.lockstep", "metric.forward_update"} <= set(traced), traced
 
 
 # ------------------------------------------------------------- enabled path
@@ -201,6 +239,9 @@ def test_forward_update_sync_span_nesting_equals_jax():
     def shape(records):
         return sorted((r.name, r.parent, r.depth) for r in records)
 
+    def port_shape(records):
+        return sorted(row[:3] for row in _without_by_design(records))
+
     def gather(x):
         return [x, x]
 
@@ -223,7 +264,9 @@ def test_forward_update_sync_span_nesting_equals_jax():
     assert by_name["metric.compute"].parent == "metric.forward"
     assert by_name["metric.sync_state"].parent == "metric.compute"
     assert by_name["metric.forward"].attrs == {"metric": "_Unfusable"}
-    assert shape(got) == shape(want)
+    assert port_shape(got) == shape(want)
+    # the reference forward runs the wrapped update: no port-only span on a single metric
+    assert not [r.name for r in got if r.name in _DIFFERENT_BY_DESIGN]
 
 
 def test_traced_decorator_records_under_qualname():
@@ -437,11 +480,15 @@ def test_span_names_counts_and_nesting_equal_jax_on_a_collection_loop():
             want, jvalues = _loop_records(mt, jobs)
     finally:
         jmetric.set_default_jit(old)
-    names = collections.Counter(r.name for r in got)
+    names = collections.Counter(r.name for r in got if r.name not in _DIFFERENT_BY_DESIGN)
     jnames = collections.Counter(r.name for r in want if r.name not in _DIFFERENT_BY_DESIGN)
     assert names == jnames
     assert names == {"metric.forward": 6, "metric.compute": 8, "collection.compute": 1}
-    assert sorted((r.name, r.parent, r.depth, (r.attrs or {}).get("metric")) for r in got) == sorted(
+    # the port's own: a root a step, a lockstep check and record a step and the epoch sync's check, an update
+    # span a member's fused forward
+    assert collections.Counter(r.name for r in got if r.name in _DIFFERENT_BY_DESIGN) == {
+        "collection.forward": 3, "collection.lockstep": 7, "metric.forward_update": 6}
+    assert sorted(_without_by_design(got)) == sorted(
         (r.name, r.parent, r.depth, (r.attrs or {}).get("metric")) for r in want)
     np.testing.assert_allclose([list(v.values()) for v in values], [list(v.values()) for v in jvalues], rtol=1e-6)
 
