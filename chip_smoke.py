@@ -73,7 +73,7 @@ Phases, in order; each raises on failure and none is caught:
    calls (``torch.cuda.set_sync_debug_mode``). Path D runs no
    hand-written kernel: its counting is torch ops (``bincount``,
    ``index_add_``, elementwise compares, an einsum), as the JAX package's is
-   XLA, so the ``kernels`` line lists K1 alone.
+   XLA, so it adds nothing to the ``kernels`` line.
 8. Path E, regression, in the same group with ``device="cuda"`` (nothing caught). E1: the error,
    moment and correlation collection (MSE, MAE, MSLE, MAPE, SMAPE, WMAPE, ExplainedVariance,
    R2Score, RelativeSquaredError, PearsonCorrcoef, ConcordanceCorrCoef, MinkowskiDistance(p=3),
@@ -94,8 +94,11 @@ Phases, in order; each raises on failure and none is caught:
    with ``mode="mirror"``) to the tolerances stated below. E4's CPU run repeats the first 2 steps
    (the full 10 take minutes on the host); the oracle holds every step and the epoch. Each step makes
    one update per compute group, and the epoch ``compute()`` one sync per group. Prints ms per step,
-   epoch ``compute()`` ms and a profiled E1 and E4 step. Path E runs no hand-written kernel: the JAX
-   package computes regression in XLA, never Pallas, so the ``kernels`` line lists K1 alone.
+   epoch ``compute()`` ms and a profiled E1 and E4 step. E4's SSIM, MS-SSIM and UQI run kernel K2
+   (``csrc/ssim_filter.cu``, 7 launches a step, no plain filter on the card); K2 alone is then held to
+   the plain version on the card at E4's shapes (maps bit for bit at every MS-SSIM scale) and timed
+   beside its float32 bound and the plain version. K2 replaces no Pallas kernel: the JAX package
+   computes SSIM in XLA. The ``kernels`` line lists K1 and K2.
 9. Path F, retrieval, in the same group with ``device="cuda"`` (nothing caught), at MS MARCO passage
    ranking's size (its dev re-ranking task: 6,980 queries x a first-stage retriever's top 1,000, rounded
    to 7,168 x 1,000): ``MetricCollection([RetrievalMAP, RetrievalMRR("neg"), RetrievalPrecision(k=10),
@@ -1491,6 +1494,79 @@ def _count_states(metric):
             if isinstance(v, torch.Tensor) and not v.is_floating_point()}
 
 
+K2_REPS = 20  # L2-cold timings of K2 a shape (median)
+K2_PLAIN_REPS = 5
+
+
+def _k2_plain_maps(p, t, window, sigma, shift=None):
+    """The plain version's maps on the same tensors: SSIM's (ssim, cs) at data_range 1, or UQI's one."""
+    import torch
+
+    from metrics_tpu_torch.functional.regression.ssim import _ssim_map
+    from metrics_tpu_torch.functional.regression.uqi import _uqi_map
+
+    if shift is None:
+        return torch.stack(_ssim_map(p, t, window, sigma, 1.0, 0.01, 0.03))
+    return _uqi_map(p, t, window, sigma, shift)[None]
+
+
+def _e4_k2(device):
+    """Kernel K2 alone at E4's shapes (the benchmark cell's: batches of 16 and 8 of 3 x 512 x 512, every
+    MS-SSIM scale): its maps against the plain version's on the card, bit for bit, its per-block sums
+    against the plain maps' sums, then its device ms (L2 cold and back to back), host enqueue and the plain
+    version's ms at the full size."""
+    import torch
+    import torch.nn.functional as F
+
+    from metrics_tpu_torch.functional.regression.ssim import _window_taps
+    from metrics_tpu_torch.ops.ssim_filter import ssim_filter_cuda
+    from metrics_tpu_torch.tools.cuda_timing import device_breakdown, device_ms_cold, host_enqueue_us, ms_back_to_back
+
+    window, sigma = (11, 11), (1.5, 1.5)
+    taps = _window_taps(window, sigma)
+    full = _to(device, _e4_batches(1, 13))[0]
+    out = {"compared": [], "ms": {}}
+    for batch in (E4_SHAPE[0], E4_SHAPE[0] // 2):
+        p, t = (x[:batch].contiguous() for x in full)
+        for scale in range(5):
+            for form, kw in (("ssim", {"data_range": 1.0}), ("uqi", {"shift": torch.mean((p + t) * 0.5)})):
+                want = _k2_plain_maps(p, t, window, sigma, kw.get("shift"))
+                maps = ssim_filter_cuda(p, t, *taps, maps=True, **kw)
+                sums = ssim_filter_cuda(p, t, *taps, **kw).sum(-1).double()
+                want_sums = want.double().sum(dim=(2, 3, 4))
+                torch.cuda.synchronize()
+                out["compared"].append({
+                    "form": form, "shape": tuple(p.shape), "equal": bool(torch.equal(maps, want)),
+                    "max_abs": float((maps - want).abs().max()),
+                    "sums_rel": float(((sums - want_sums).abs() / want_sums.abs()).max())})
+            p, t = F.avg_pool2d(p, 2), F.avg_pool2d(t, 2)
+    p, t = full
+    shift = torch.mean((p + t) * 0.5)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    calls = {
+        "ssim_sums": lambda: ssim_filter_cuda(p, t, *taps, data_range=1.0),
+        "ssim_maps": lambda: ssim_filter_cuda(p, t, *taps, data_range=1.0, maps=True),
+        "uqi_sums": lambda: ssim_filter_cuda(p, t, *taps, shift=shift),
+        "ssim_sums_batch8": lambda: ssim_filter_cuda(p[:8], t[:8], *taps, data_range=1.0),
+    }
+    for name, call in calls.items():
+        out["ms"][name] = device_ms_cold(call, reps=K2_REPS, flush=flush)
+    out["ms_back_to_back"] = ms_back_to_back(calls["ssim_sums"], 100)
+    out["host_enqueue_us"] = host_enqueue_us(calls["ssim_sums"])
+    # the device operations of one full-size call, as phase 3 counts K1's: the profiler can drop a kernel record,
+    # never add one, so the session that recorded the most is kept and every session's names are checked
+    sessions = [device_breakdown(calls["ssim_sums"]) for _ in range(K1_PROFILE_SESSIONS)]
+    out["device_ops"] = max(sessions, key=lambda rows: sum(r["per_call"] for r in rows))
+    out["device_op_names"] = sorted({r["name"] for rows in sessions for r in rows})
+    out["launches_per_call"] = sum(r["per_call"] for r in out["device_ops"])
+    out["plain_ms"] = device_ms_cold(lambda: torch.sum(_k2_plain_maps(p, t, window, sigma)[0]), reps=K2_PLAIN_REPS,
+                                     flush=flush)
+    n, c, h, w = E4_SHAPE
+    flops = 5 * 2 * window[0] * 2 * n * c * h * w  # five moments, two passes, a multiply-add a tap (work count's)
+    out["bound_ms"] = max(flops / FP32_OPS_PER_S, 2 * 4 * n * c * h * w / HBM_BYTES_PER_S) * 1e3
+    return out
+
+
 def run_path_e(device):
     """Path E inside the caller's process group: E1, E2 and E4 forward with ``dist_sync_on_step``, E3 synced
     at ``compute()``; timed, updates and epoch collectives counted, an E1 and an E4 step profiled."""
@@ -1511,6 +1587,7 @@ def run_path_e(device):
         out["E1"]["profile"] = _profile_call(lambda: fresh(*batch))
 
     import metrics_tpu_torch as pt
+    from metrics_tpu_torch.ops.ssim_filter import ssim_filter_cuda
 
     e3 = {}
     for kind, cls, (steps, n), seed, capacity in (("Spearman", pt.SpearmanCorrcoef, E3_SPEARMAN, 9, 2**23),
@@ -1543,12 +1620,15 @@ def run_path_e(device):
 
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
+        k2_before = ssim_filter_cuda.launches, ssim_filter_cuda.plain_cuda_calls
         values, ms, updates = _forward_counted(col, _to(device, host), call=_e4_call, on_step=keep_counts)
+        k2_counts = (ssim_filter_cuda.launches - k2_before[0], ssim_filter_cuda.plain_cuda_calls - k2_before[1])
         peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
         epoch, epoch_ms, collectives, said = _epoch_timed(col, device)
         out["E4"] = {"host": host, "collection": col, "values": values, "ms": ms, "updates": updates,
                      "epoch": epoch, "epoch_ms": epoch_ms, "collectives": collectives, "warnings": said,
-                     "expected": _syncs_per_epoch(col), "counts_at_cpu_steps": snapshot, "peak_bytes": peak}
+                     "expected": _syncs_per_epoch(col), "counts_at_cpu_steps": snapshot, "peak_bytes": peak,
+                     "k2_launches": k2_counts[0], "k2_plain_cuda_calls": k2_counts[1]}
         if device.type == "cuda":
             batch = _to(device, host[:1])[0]
             fresh = _e4_collection(device, dist_sync_on_step=True)
@@ -1562,6 +1642,8 @@ def run_path_e(device):
                             "expected": _syncs_per_epoch(stored)}
         out["flags_kept"] = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
                              torch.get_float32_matmul_precision()) == (True, True, "high")
+        if device.type == "cuda":
+            out["E4 K2"] = _e4_k2(device)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[:2]
         torch.set_float32_matmul_precision(saved[2])
@@ -1861,6 +1943,27 @@ def check_path_e(result):
                                   " left those flags as they were")
     timings["E4"] = _e_report("E4", run, len(cpu.compute_groups), len(run["host"]))
     timings["E4"]["peak_bytes"] = run["peak_bytes"]
+    if "E4 K2" in result:
+        steps = len(run["host"])
+        _check((run["k2_launches"], run["k2_plain_cuda_calls"]) == (7 * steps, 0),
+               f"path E4: kernel K2 launched {run['k2_launches']} times over {steps} steps (SSIM 1, MS-SSIM 5, UQI 1"
+               f" a step) and the plain filter ran {run['k2_plain_cuda_calls']} times on the card")
+        k2 = result["E4 K2"]
+        names = k2["device_op_names"]
+        _check(k2["launches_per_call"] == 1 and len(names) == 1 and "ssim_filter_kernel" in names[0],
+               f"K2 at {E4_SHAPE} is one device operation per call, no fill or copy ({names}; recorded"
+               f" {k2['launches_per_call']:g} a call in the fullest of {K1_PROFILE_SESSIONS} sessions)")
+        for row in k2["compared"]:
+            _check(row["equal"] and row["sums_rel"] < 1e-5,
+                   f"K2 {row['form']} {row['shape']}: maps equal the plain version's on the card bit for bit (max abs"
+                   f" diff {row['max_abs']:.3g}), per-block sums within rtol 1e-5 of the maps' sums"
+                   f" ({row['sums_rel']:.3g})")
+        print(f"    K2 at {E4_SHAPE}: {k2['ms']['ssim_sums']:.4f} ms (device, L2 cold, median of {K2_REPS}; sums),"
+              f" {k2['ms']['ssim_maps']:.4f} (maps), UQI {k2['ms']['uqi_sums']:.4f}, batch 8"
+              f" {k2['ms']['ssim_sums_batch8']:.4f}; {k2['ms_back_to_back']:.4f} ms a call back to back; host"
+              f" enqueue {k2['host_enqueue_us']:.2f} us; bound {k2['bound_ms']:.4f} ms (float32 FMA); plain"
+              f" {k2['plain_ms']:.3f} ms; {k2['launches_per_call']:g} device operation a call")
+        timings["E4"]["k2"] = dict(k2, launches=run["k2_launches"])
     if run["peak_bytes"] is not None:
         print(f"    path E4 peak device memory {run['peak_bytes'] / 2**20:.0f} MiB")
 
@@ -7956,7 +8059,27 @@ def main() -> int:
     print(f"    path O2: fenced metric.forward device ms a step (K1 inside, one launch a member)"
           f" {[round(x, 4) for x in paths['o']['O2_update_device_ms']]} beside K1's phase-3 kernel ms {k1['ms']:.4f}")
 
-    print(json.dumps({"kernels": [kernel]}))
+    e4_k2 = paths["e"]["E4"]["k2"]
+    k2 = {
+        "name": "ssim_filter",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/ssim_filter.cu",
+        "replaces": None,
+        "replaces_reason": "the JAX package's SSIM family filters with an XLA convolution, not a Pallas kernel",
+        "launches": e4_k2["launches"],
+        "max_abs_err": max(row["max_abs"] for row in e4_k2["compared"]),
+        "ms": e4_k2["ms"]["ssim_sums"],
+        "kernel_ms": e4_k2["ms"]["ssim_sums"],
+        "ms_back_to_back": e4_k2["ms_back_to_back"],
+        "host_enqueue_us": e4_k2["host_enqueue_us"],
+        "launches_per_call": e4_k2["launches_per_call"],
+        "plain_ms": e4_k2["plain_ms"],
+        "bound_ms": e4_k2["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+        "library_reason": "no PyTorch call computes the five windowed moments outside TF32 in one pass",
+    }
+    print(json.dumps({"kernels": [kernel, k2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

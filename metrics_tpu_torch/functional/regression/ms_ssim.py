@@ -5,6 +5,8 @@ per scale, a 2 x 2 average pool between scales (``F.avg_pool2d``, which drops
 an odd trailing row or column as the JAX package's VALID window does), the
 per-image mean contrast sensitivity of the first S - 1 scales and the mean
 SSIM of the coarsest, combined as ``prod_i relu(mcs_i)^beta_i * relu(mssim_S)^beta_S``.
+On the card each scale is one launch of kernel K2 (``ops/ssim_filter.py``), whose
+per-block sums give the per-image means; the pool stays a torch op.
 """
 from typing import Optional, Sequence
 
@@ -12,7 +14,15 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-from metrics_tpu_torch.functional.regression.ssim import _check_ssim_params, _data_range_of, _ssim_map, _ssim_update
+from metrics_tpu_torch.functional.regression.ssim import (
+    _check_ssim_params,
+    _data_range_of,
+    _map_numel,
+    _on_kernel,
+    _ssim_filtered,
+    _ssim_map,
+    _ssim_update,
+)
 from metrics_tpu_torch.utils.reductions import reduce
 
 # Wang et al. 2003 scale weights
@@ -58,11 +68,14 @@ def multiscale_ssim(
     terms = []
     p, t = preds, target
     for scale, beta in enumerate(betas):
-        ssim_idx, cs_idx = _ssim_map(p, t, kernel_size, sigma, data_range, k1, k2)
-        if scale == len(betas) - 1:
-            value = torch.mean(ssim_idx, dim=(1, 2, 3))  # luminance enters at the coarsest scale only
+        last = scale == len(betas) - 1  # luminance enters at the coarsest scale only
+        if _on_kernel(p, kernel_size):
+            sums = _ssim_filtered(p, t, kernel_size, sigma, data_range, k1, k2, False)[0 if last else 1]
+            value = sums.sum(dim=1) / _map_numel(p.shape[1:], kernel_size)
         else:
-            value = torch.mean(cs_idx, dim=(1, 2, 3))
+            ssim_idx, cs_idx = _ssim_map(p, t, kernel_size, sigma, data_range, k1, k2)
+            value = torch.mean(ssim_idx if last else cs_idx, dim=(1, 2, 3))
+        if not last:
             p, t = F.avg_pool2d(p, 2), F.avg_pool2d(t, 2)
         terms.append(torch.clamp_min(value, 0.0) ** beta)
     return reduce(torch.prod(torch.stack(terms), dim=0), reduction)

@@ -14,13 +14,20 @@ no matmul and no cuDNN, so the result does not depend on any precision flag.
 
 ``F.pad(mode="reflect")`` excludes the edge pixel, as ``jnp.pad`` does (scipy's
 ``ndimage`` calls that mode ``mirror``).
+
+On the card a float32 batch whose window fits takes kernel K2 instead
+(``ops/ssim_filter.py``, :func:`filter_takes`): one launch gives the cropped
+maps, or each block's sums of them, with the five moment maps never written to
+device memory. Everything else, CPU tensors included, takes the plain version.
 """
-from typing import Optional, Sequence, Tuple, Union
+import functools
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from metrics_tpu_torch.ops.ssim_filter import filter_takes, ssim_filter_cuda
 from metrics_tpu_torch.utils.checks import _check_same_shape
 from metrics_tpu_torch.utils.reductions import reduce
 
@@ -41,6 +48,40 @@ def _filter_1d(x: Tensor, window: Tensor, dim: int) -> Tensor:
     for k in range(1, len(taps)):
         out.add_(x.narrow(dim, k, size), alpha=taps[k])
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _window_taps(kernel_size: Tuple[int, int], sigma: Tuple[float, float]) -> Tuple[Tuple[float, ...], ...]:
+    """K2's float32 taps along H and along W, the plain version's ``_gaussian`` values."""
+    return tuple(tuple(_gaussian(k, s, torch.float32).tolist()) for k, s in zip(kernel_size, sigma))
+
+
+def _on_kernel(preds: Tensor, kernel_size: Sequence[int]) -> bool:
+    return filter_takes(preds.device, preds.dtype, preds.shape, kernel_size)
+
+
+def _map_numel(shape: Sequence[int], kernel_size: Sequence[int]) -> int:
+    """Pixels of the cropped map of a ``(..., H, W)`` batch (none where the window is the longer)."""
+    *lead, h, w = shape
+    count = max(h - kernel_size[0] + 1, 0) * max(w - kernel_size[1] + 1, 0)
+    for d in lead:
+        count *= d
+    return count
+
+
+def _filtered(preds: Tensor, target: Tensor, kernel_size: Sequence[int], sigma: Sequence[float], maps: bool,
+              **kw) -> Tensor:
+    """K2 over the batch: its maps or its per-block sums (``ssim_filter_cuda``)."""
+    taps_h, taps_w = _window_taps(tuple(kernel_size), tuple(sigma))
+    return ssim_filter_cuda(preds.contiguous(), target.contiguous(), taps_h, taps_w, maps=maps, **kw)
+
+
+def _reduce_filtered(filtered: Callable[[bool], Tensor], count: int, reduction: str) -> Tensor:
+    """``reduce`` of K2's first map: from its per-block sums for a mean or a sum, else from the map."""
+    if reduction in ("elementwise_mean", "sum"):
+        total = filtered(False)[0].sum()
+        return total if reduction == "sum" else total / count
+    return reduce(filtered(True)[0], reduction)
 
 
 def _dtype_name(x: Tensor) -> str:
@@ -86,6 +127,8 @@ def _moment_maps(
     and the final crop use the same per-axis extents, so a non-square window
     stays centred. Shared by SSIM, MS-SSIM and UQI.
     """
+    if preds.is_cuda:
+        ssim_filter_cuda.plain_cuda_calls += 1
     pad_h = (kernel_size[0] - 1) // 2
     pad_w = (kernel_size[1] - 1) // 2
     preds_p = F.pad(preds, (pad_w, pad_w, pad_h, pad_h), mode="reflect")
@@ -118,6 +161,15 @@ def _ssim_map(
     return ssim_idx, cs_idx
 
 
+def _ssim_filtered(preds: Tensor, target: Tensor, kernel_size: Sequence[int], sigma: Sequence[float],
+                   data_range: Union[float, Tensor], k1: float, k2: float, maps: bool) -> Tensor:
+    """K2's SSIM form: ``(ssim_idx, cs_idx)`` maps, or their per-block sums ``(2, N, blocks)``. A tensor
+    ``data_range`` is read on the card, as one float32 value."""
+    if isinstance(data_range, Tensor):
+        data_range = data_range.to(device=preds.device, dtype=torch.float32)
+    return _filtered(preds, target, kernel_size, sigma, maps, data_range=data_range, k1=k1, k2=k2)
+
+
 def _data_range_of(preds: Tensor, target: Tensor) -> Tensor:
     """The range inferred when ``data_range`` is None: the larger of the two inputs' spans."""
     return torch.maximum(torch.max(preds) - torch.min(preds), torch.max(target) - torch.min(target))
@@ -136,6 +188,10 @@ def _ssim_compute(
     _check_ssim_params(kernel_size, sigma)
     if data_range is None:
         data_range = _data_range_of(preds, target)
+    if _on_kernel(preds, kernel_size):
+        return _reduce_filtered(
+            lambda maps: _ssim_filtered(preds, target, kernel_size, sigma, data_range, k1, k2, maps),
+            _map_numel(preds.shape, kernel_size), reduction)
     ssim_idx, _ = _ssim_map(preds, target, kernel_size, sigma, data_range, k1, k2)
     return reduce(ssim_idx, reduction)
 

@@ -28,10 +28,17 @@ def _tweedie_update(preds: Tensor, target: Tensor, power: float = 0.0) -> Tuple[
         # Gamma deviance
         dev = 2.0 * (torch.log(mu / y) + y / mu - 1.0)
     else:
+        # The three terms cancel to a deviance ~1e-3 of their size, so a last-bit difference in one
+        # power shows at 1e-5. A 0-dim exponent on the tensor's device keeps torch on its general
+        # pow, which rounds as XLA's does; a Python float 0.5 or -0.5 (power 1.5) takes torch's
+        # sqrt/rsqrt shortcut, which rounds otherwise. It is filled on the device: no host copy.
+        def _pow(x: Tensor, exponent: float) -> Tensor:
+            return torch.pow(x, torch.full((), exponent, dtype=x.dtype, device=x.device))
+
         dev = 2.0 * (
-            torch.pow(torch.clamp_min(y, 0.0), 2.0 - power) / ((1.0 - power) * (2.0 - power))
-            - y * torch.pow(mu, 1.0 - power) / (1.0 - power)
-            + torch.pow(mu, 2.0 - power) / (2.0 - power)
+            _pow(torch.clamp_min(y, 0.0), 2.0 - power) / ((1.0 - power) * (2.0 - power))
+            - y * _pow(mu, 1.0 - power) / (1.0 - power)
+            + _pow(mu, 2.0 - power) / (2.0 - power)
         )
     return torch.sum(dev), y.shape[0]
 

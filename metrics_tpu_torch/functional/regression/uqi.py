@@ -6,16 +6,43 @@ centred on their shared global mean first, so ``E[x^2] - mu^2`` cancels at the
 scale of the true variance, and a flat window is one whose variance is below
 a few ulps of its centred second moment. Two flat windows agree in contrast
 (the luminance term then scores their levels); both-zero means score 1.
+On the card a float32 batch whose window fits takes kernel K2
+(``ops/ssim_filter.py``), which subtracts the shift as it loads and applies
+the same formulas per pixel.
 """
 from typing import Sequence
 
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.functional.regression.ssim import _check_ssim_params, _moment_maps, _ssim_update
+from metrics_tpu_torch.functional.regression.ssim import (
+    _check_ssim_params,
+    _filtered,
+    _map_numel,
+    _moment_maps,
+    _on_kernel,
+    _reduce_filtered,
+    _ssim_update,
+)
 from metrics_tpu_torch.utils.reductions import reduce
 
 _TINY = 1e-30  # guards the division of the branch that ``where`` drops
+
+
+def _uqi_map(preds: Tensor, target: Tensor, kernel_size: Sequence[int], sigma: Sequence[float],
+             shift: Tensor) -> Tensor:
+    """The plain version's per-window quality map of the two batches centred on ``shift``."""
+    mu_pc, mu_tc, var_p, var_t, cov = _moment_maps(preds - shift, target - shift, kernel_size, sigma)
+    mu_p, mu_t = mu_pc + shift, mu_tc + shift
+
+    denom_v = var_p + var_t
+    denom_m = mu_p**2 + mu_t**2
+    second_c = var_p + mu_pc**2 + var_t + mu_tc**2  # centred second moments
+    flat = denom_v <= 64.0 * torch.finfo(preds.dtype).eps * second_c + _TINY
+    one = torch.ones_like(denom_v)
+    contrast = torch.where(flat, one, 2.0 * cov / torch.clamp_min(denom_v, _TINY))
+    luminance = torch.where(denom_m <= _TINY, one, 2.0 * mu_p * mu_t / torch.clamp_min(denom_m, _TINY))
+    return contrast * luminance
 
 
 def universal_image_quality_index(
@@ -38,14 +65,7 @@ def universal_image_quality_index(
     preds, target = _ssim_update(preds, target)
     _check_ssim_params(kernel_size, sigma)
     shift = torch.mean((preds + target) * 0.5)
-    mu_pc, mu_tc, var_p, var_t, cov = _moment_maps(preds - shift, target - shift, kernel_size, sigma)
-    mu_p, mu_t = mu_pc + shift, mu_tc + shift
-
-    denom_v = var_p + var_t
-    denom_m = mu_p**2 + mu_t**2
-    second_c = var_p + mu_pc**2 + var_t + mu_tc**2  # centred second moments
-    flat = denom_v <= 64.0 * torch.finfo(preds.dtype).eps * second_c + _TINY
-    one = torch.ones_like(denom_v)
-    contrast = torch.where(flat, one, 2.0 * cov / torch.clamp_min(denom_v, _TINY))
-    luminance = torch.where(denom_m <= _TINY, one, 2.0 * mu_p * mu_t / torch.clamp_min(denom_m, _TINY))
-    return reduce(contrast * luminance, reduction)
+    if _on_kernel(preds, kernel_size):
+        return _reduce_filtered(lambda maps: _filtered(preds, target, kernel_size, sigma, maps, shift=shift),
+                                _map_numel(preds.shape, kernel_size), reduction)
+    return reduce(_uqi_map(preds, target, kernel_size, sigma, shift), reduction)

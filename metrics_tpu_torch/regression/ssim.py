@@ -16,7 +16,12 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric
-from metrics_tpu_torch.functional.regression.ssim import _check_ssim_params, _ssim_compute, _ssim_map, _ssim_update
+from metrics_tpu_torch.functional.regression.ssim import (
+    _check_ssim_params,
+    _map_numel,
+    _ssim_compute,
+    _ssim_update,
+)
 from metrics_tpu_torch.parallel.buffer import as_values
 from metrics_tpu_torch.utils.prints import rank_zero_warn_once
 
@@ -84,9 +89,9 @@ class SSIM(Metric):
     def update(self, preds: Tensor, target: Tensor) -> None:
         preds, target = _ssim_update(preds, target)
         if self.streaming:
-            idx, _ = _ssim_map(preds, target, self.kernel_size, self.sigma, self.data_range, self.k1, self.k2)
-            self.similarity = self.similarity + torch.sum(idx)
-            self.total = self.total + idx.numel()
+            total = _ssim_compute(preds, target, self.kernel_size, self.sigma, "sum", self.data_range, self.k1, self.k2)
+            self.similarity = self.similarity + total
+            self.total = self.total + _map_numel(preds.shape, self.kernel_size)
         else:
             self._append("y_pred", preds)
             self._append("y", target)

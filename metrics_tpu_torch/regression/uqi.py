@@ -6,6 +6,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.core.streaming import SumCountMetric
+from metrics_tpu_torch.functional.regression.ssim import _map_numel
 from metrics_tpu_torch.functional.regression.uqi import universal_image_quality_index
 
 
@@ -37,5 +38,5 @@ class UniversalImageQualityIndex(SumCountMetric):
         self.sigma = tuple(sigma)
 
     def _update_stats(self, preds: Tensor, target: Tensor) -> Tuple[Tensor, Any]:
-        q_map = universal_image_quality_index(preds, target, self.kernel_size, self.sigma, "none")
-        return torch.sum(q_map), q_map.numel()
+        total = universal_image_quality_index(preds, target, self.kernel_size, self.sigma, "sum")
+        return total, _map_numel(preds.shape, self.kernel_size)
