@@ -132,7 +132,8 @@ Phases, in order; each raises on failure and none is caught:
    AUROC of G1's epoch (path C's rank oracle) lies within each sketch's ``error_bound()``; each quantile lies
    within its ``error_bound()`` of the sample the sketch's rank selects (``np.quantile(..., method="lower")`` of
    the non-NaN samples) and within relative alpha of ``np.quantile`` of the finite samples; each key's min-row count-min estimate is at least its true count. Each step makes one
-   update and one ``all_reduce`` per compute group, the epoch one ``all_reduce`` per group, and a profiled step
+   update per compute group and one ``all_reduce`` per (dtype, op) bucket of its packed sync, the epoch one
+   ``all_reduce`` per group, and a profiled step
    of G1-G4 makes no synchronizing CUDA call. Prints ms per step, epoch ``compute()`` ms, a profiled step's
    device ms, operations and scatter ms, and each state's bytes beside the exact mode's for the
    same epoch. Path G runs no hand-written kernel: the JAX package updates its sketches with XLA scatter-adds.
@@ -214,7 +215,7 @@ Phases, in order; each raises on failure and none is caught:
    a float64 closed form. W5: two ranks of one ``WatermarkAgreement(deadline_s=0.5)``, one 90 s behind: windows stay
    open for it, late verdicts follow the agreed clock, a silent rank is excluded past the deadline (``wm_stragglers``
    + 1) and rejoins. W6: the main collection's pure view (2 entries; one ``all_reduce`` a step, one a (dtype, op)
-   bucket), ``forward_batched`` over path A's 20 stacked batches (path A's per-step values bit for bit) and
+   bucket, as the stateful step's packed sync), ``forward_batched`` over path A's 20 stacked batches (path A's per-step values bit for bit) and
    ``clone(prefix="b_")``. Prints each part's ms per step, a profiled step's device ms, share, operations and
    synchronizing calls, collective calls and peak bytes above the state. Path K runs no hand-written kernel: the
    JAX package's routing is host numpy and its scatters ``segment_sum``, never Pallas.
@@ -248,7 +249,7 @@ Phases, in order; each raises on failure and none is caught:
    hot and tail counts bit-equal to the dense sync. M3: W1's ``Windowed(AUROC sketch)`` ring (12 steps): windows
    bit-equal to the dense sync, at most 4 rows a round. M4: ``deferred_sparse_sync`` over M1's state equals the
    synchronous round. M5: path A's collection with a one-rank ``MeshHierarchy``: the flat plane over ``ici``, the
-   same 2 ``all_reduce`` a step, values bit-equal. M6: four Gloo processes of this script (``--m6-worker``), 2
+   flat step's ``all_reduce`` count (its packed sync), values bit-equal. M6: four Gloo processes of this script (``--m6-worker``), 2
    slices of 2, on the host: the two-stage sum and gather against the flat plane, the counters' bytes by crossing
    against the JAX package's formula, ``slice_leader_gather``, ``buffer_all_gather``, and 5 sparse rounds a plane
    over ``Keyed(AUROC sketch, 1,000)`` with each rank's own slots, flat (2 collectives a round) and two-level (4).
@@ -278,12 +279,14 @@ Phases, in order; each raises on failure and none is caught:
 18. Path O, observability (``metrics_tpu_torch/observability/``), in the same group over paths A and B. O1: path
    A's collection over its 20 batches with observability off, with spans and counters (``enable()``) and fenced
    (``enable(device_time=True)``), each leg twice, in turns forward and back: per-step values and the epoch equal
-   path A's bit for bit in every run; the span counts a step are one ``collection.group_update`` and one
-   ``collection.step_sync`` a shared compute group, one ``metric.forward`` and one ``metric.sync_state`` a
-   singleton, one ``metric.compute`` a member (and at the epoch one ``collection.host_sync`` a shared group);
+   path A's bit for bit in every run; the span counts a step are one ``collection.group_update`` a shared compute
+   group, one ``collection.step_sync`` (the members' packed sync), one ``metric.forward`` a singleton, one
+   ``metric.compute`` a member and no ``metric.sync_state`` (at the epoch one ``collection.host_sync`` a shared
+   group and one ``metric.sync_state`` a singleton);
    ``summarize()`` has ``state_bytes`` and, fenced, ``device_ms`` on every phase; ``device_time_table()`` has a row
    a compute group (``update`` and ``sync`` for a shared group, ``forward`` and ``sync`` for a singleton);
-   ``counters_snapshot()`` has the JAX schema's keys and one ``psum`` a group a step; ``write_chrome_trace`` loads
+   ``counters_snapshot()`` has the JAX schema's keys and one ``psum`` a (dtype, op) bucket of the packed sync a
+   step; ``write_chrome_trace`` loads
    with one ``X`` event a span. Prints each leg's ms/step, the overheads, and whether the off leg's median lies
    within path A's per-step spread in this call (host-bound: printed, not held). O2: path B's first 4 steps,
    fenced, under ``start_trace`` / ``stop_trace``: K1 launched 2 times a step, counts bit-equal to path B's,
@@ -603,6 +606,15 @@ class _CountCollectives:
 
         for name, fn in self._real.items():
             setattr(dist, name, fn)
+
+
+def _packed_step_reduces(collection):
+    """The ``all_reduce`` calls a step of ``collection`` makes when its ``dist_sync_on_step`` members share the
+    packed step sync (``MetricCollection._step_sync_packs``), or one member syncs alone: one a (dtype, op) bucket of
+    the deduplicated state, as ``sync_state`` of a fresh state makes them."""
+    with _CountCollectives() as counts:
+        collection.sync_state(collection.init_state())
+    return counts["all_reduce"]
 
 
 def _epoch_collectives(collection, batches):
@@ -2355,7 +2367,7 @@ def run_path_g(device, a_batches, b_batches):
         epoch, epoch_ms, collectives, _ = _epoch_timed(col, device)
         run = {"collection": col, "values": values, "ms": ms, "updates": updates, "reduces": reduces,
                "epoch": {k: _g_host(v) for k, v in epoch.items()}, "epoch_ms": epoch_ms, "collectives": collectives,
-               "groups": len(col.compute_groups), "counts": _g_counts(col),
+               "groups": len(col.compute_groups), "counts": _g_counts(col), "step_reduces": _packed_step_reduces(col),
                "bytes": {k: sum(sketch_nbytes(v) for v in m._current_state().values()) for k, m in col.items()}}
         bounds = {}
         for k, m in col.items():
@@ -2553,8 +2565,9 @@ def check_path_g(result):
                   f" (rtol {RTOL_G_RANK if part.startswith('G3') else RTOL_G_CURVE}; max rel diff {worst:.3g});"
                   f" epoch {shown}")
         steps = len(batches)
-        _check(run["updates"] == [run["groups"]] * steps and run["reduces"] == [run["groups"]] * steps,
-               f"path {part}: {run['groups']} compute group(s), one update and one all_reduce a group every step")
+        _check(run["updates"] == [run["groups"]] * steps and run["reduces"] == [run["step_reduces"]] * steps,
+               f"path {part}: {run['groups']} compute group(s), one update a group and {run['step_reduces']}"
+               f" all_reduce (the step's packed sync, one a (dtype, op) bucket) every step")
         _check(run["collectives"] == {"all_reduce": run["groups"], "all_gather": 0},
                f"path {part} epoch compute: {run['collectives']}, one all_reduce a compute group")
         prof = run.get("profile")
@@ -2951,7 +2964,8 @@ def run_path_h3(device):
     out = {"names": list(col.keys()), "step_values": step_values, "ms": ms, "updates": updates, "reduces": reduces,
            "epoch": {k: v.item() for k, v in epoch.items()}, "epoch_ms": epoch_ms, "collectives": collectives,
            "contingency": {k: m.contingency.cpu().numpy() for k, m in col.items()}, "emi": emi.item(),
-           "emi_ms": emi_ms, "emi_peak": emi_peak, "first_ami": first_ami, "groups": len(col.compute_groups)}
+           "emi_ms": emi_ms, "emi_peak": emi_peak, "first_ami": first_ami, "groups": len(col.compute_groups),
+           "step_reduces": _packed_step_reduces(col)}
     if device.type == "cuda":
         fresh = _h3_collection(device, dist_sync_on_step=True)
         step0 = (torch.from_numpy(preds[:H3_BATCH]).to(device), torch.from_numpy(target[:H3_BATCH]).to(device))
@@ -3452,9 +3466,10 @@ def check_path_h3(run):
           f" {oracle_s:.1f} s)")
     steps = len(run["ms"])
     _check(run["groups"] == len(names) and run["updates"] == [len(names)] * steps
-           and run["reduces"] == [len(names)] * steps,
-           f"path H3: no compute group (as in the JAX package): {len(names)} updates and {len(names)} all_reduce calls"
-           f" (one {H3_K * H3_K * 8 / 1e6:.0f} MB int64 state each) every step")
+           and run["reduces"] == [run["step_reduces"]] * steps,
+           f"path H3: no compute group (as in the JAX package): {len(names)} updates and {run['step_reduces']}"
+           f" all_reduce (the members' {H3_K * H3_K * 8 / 1e6:.0f} MB int64 states in the step's packed sync) every"
+           f" step")
     timing = {"ms_per_step": statistics.median(run["ms"]), "first_step_ms": run["ms"][0], "epoch_ms": run["epoch_ms"],
               "emi_ms": run["emi_ms"], "emi_peak_bytes": run["emi_peak"], "cpu_ami_ms": cpu_ms,
               "oracle_emi_s": oracle_s}
@@ -3797,6 +3812,7 @@ def run_path_i2(device):
         dists.append(d.cpu().numpy())
         dp_ms.append(call_ms)
     out = {"hyps": hyps, "refs": refs, "values": values, "ms": ms, "updates": updates, "reduces": reduces,
+           "step_reduces": _packed_step_reduces(col),
            "epoch": {k: v.item() for k, v in epoch.items()}, "epoch_ms": epoch_ms, "epoch_collectives": collectives,
            "states": _text_states(col), "dists": np.concatenate(dists), "dp_ms": dp_ms,
            "update_counts": (int(wer_dev.errors), int(wer_dev.total)), "wer_counts": wer_dev.compute().item()}
@@ -4137,9 +4153,9 @@ def check_path_i2(run):
           f" float64 rates of the oracle's counts (rtol {RTOL_I}; the largest difference {worst:.2f} of the"
           f" tolerance; oracle DPs {oracle_s:.1f} s); epoch {run['epoch']}")
     n_groups = len(_I2_MEMBERS)
-    _check(run["updates"] == [n_groups] * len(run["ms"]) and run["reduces"] == [n_groups] * len(run["ms"]),
-           f"path I2: {n_groups} updates and {n_groups} all_reduce calls a step (six singleton groups of int64 states,"
-           f" as in the JAX package)")
+    _check(run["updates"] == [n_groups] * len(run["ms"]) and run["reduces"] == [run["step_reduces"]] * len(run["ms"]),
+           f"path I2: {n_groups} updates and {run['step_reduces']} all_reduce a step (six singleton groups of int64"
+           f" states, as in the JAX package, in the step's packed sync)")
     ms = statistics.median(run["ms"])
     timing = {"ms_per_step": ms, "first_step_ms": run["ms"][0], "epoch_ms": run["epoch_ms"],
               "dp_ms": statistics.median(run["dp_ms"])}
@@ -5532,11 +5548,11 @@ def check_path_k(result):
         if not np.isclose(v, loop_epoch[k], rtol=RTOL_CLASS, atol=0):
             raise AssertionError(f"W6 pure compute {k} = {v} but the stateful collection gives {loop_epoch[k]}")
     _check(run["entries"] == ["Accuracy", "F1"] and per_step == {run["buckets"]} and run["buckets"] == 1
-           and run["pure_state_own"] == 0 and run["step_calls"]["all_reduce"] == 2,
+           and run["pure_state_own"] == 0 and run["step_calls"]["all_reduce"] == run["buckets"],
            f"W6: init_state has {len(run['entries'])} entries (the compute groups); update -> sync -> compute makes"
-           f" {run['buckets']} all_reduce a step, one per (dtype, op) bucket of the whole collection (the stateful"
-           f" per-step sync makes {run['step_calls']['all_reduce']}, one a compute group); its epoch equals the"
-           f" stateful collection's (max abs diff {worst:.2e})")
+           f" {run['buckets']} all_reduce a step, one per (dtype, op) bucket of the whole collection, as the stateful"
+           f" step's packed sync does ({run['step_calls']['all_reduce']}); its epoch equals the stateful"
+           f" collection's (max abs diff {worst:.2e})")
     for k, series in run["batched"].items():
         want = [s[k] for s in run["step_values"]]
         if series != want:
@@ -6297,7 +6313,7 @@ def run_path_m(device, a_batches):
     h = pt.parallel.hierarchical_mesh()
     flat_col = _main_collection(device, dist_sync_on_step=True)
     hier_col = _main_collection(device, dist_sync_on_step=True, process_group=h)
-    m5 = {"equal": [], "calls": [], "crossings": None, "ms": []}
+    m5 = {"equal": [], "calls": [], "crossings": None, "ms": [], "step_reduces": _packed_step_reduces(flat_col)}
     for b in a_batches:
         want = {k: v.item() for k, v in flat_col(*b).items()}
         counters.reset()
@@ -6447,10 +6463,11 @@ def check_path_m(result):
     # M5
     m5 = result["M5"]
     per_step = m5["calls"][-1]["all_reduce"]
-    _check(all(m5["equal"]) and m5["epoch_equal"] and all(c["all_reduce"] == 2 for c in m5["calls"])
+    _check(all(m5["equal"]) and m5["epoch_equal"] and all(c["all_reduce"] == m5["step_reduces"] for c in m5["calls"])
            and set(m5["crossings"]) == {"ici"},
            f"M5: path A's collection with a one-rank MeshHierarchy equals the flat run bit for bit every step and at the"
-           f" epoch, with {per_step} all_reduce a step, counted at {m5['crossings']}"
+           f" epoch, with {per_step} all_reduce a step (the flat step's packed sync makes {m5['step_reduces']}), counted"
+           f" at {m5['crossings']}"
            f" ({statistics.median(m5['ms']):.3f} ms/step)")
     timings["M5_ms_per_step"] = statistics.median(m5["ms"])
 
@@ -7094,18 +7111,21 @@ O1_ORDER = ("off", "spans", "fenced", "fenced", "spans", "off")
 
 def _o_phase_counts(collection, steps):
     """The span counts path A's collection records over ``steps`` forwards and one epoch ``compute()``: per step one
-    ``collection.group_update`` and one ``collection.step_sync`` a shared compute group, one ``metric.forward`` and
-    one ``metric.sync_state`` a singleton group, one ``metric.compute`` a member; at the epoch one
-    ``collection.host_sync`` a shared group, the singletons' own sync and every member's compute. The port's own:
-    one ``collection.forward`` a step, a ``collection.lockstep`` check and record a step and the epoch sync's check,
-    one ``metric.forward_update`` a step a singleton on the fused forward."""
+    ``collection.group_update`` a shared compute group, one ``collection.step_sync`` a packed sync
+    (``MetricCollection._step_sync_packs``), one ``metric.forward`` a singleton group, one ``metric.sync_state`` a
+    member outside every pack, one ``metric.compute`` a member; at the epoch one ``collection.host_sync`` a shared
+    group, the singletons' own sync and every member's compute. The port's own: one ``collection.forward`` a step, a
+    ``collection.lockstep`` check and record a step and the epoch sync's check, one ``metric.forward_update`` a step a
+    singleton on the fused forward."""
     groups = list(collection.compute_groups.values())
     shared = sum(1 for g in groups if len(g) > 1)
     singles = sum(1 for g in groups if len(g) == 1)
     fused = sum(1 for g in groups if len(g) == 1 and collection[g[0]]._fusable)
     members = sum(len(g) for g in groups)
-    counts = {"collection.group_update": steps * shared, "collection.step_sync": steps * shared,
-              "metric.forward": steps * singles, "metric.sync_state": (steps + 1) * singles,
+    packs = collection._step_sync_packs(collection._eager_shared_groups())
+    alone = members - sum(len(p) for p in packs)
+    counts = {"collection.group_update": steps * shared, "collection.step_sync": steps * len(packs),
+              "metric.forward": steps * singles, "metric.sync_state": steps * alone + singles,
               "metric.compute": (steps + 1) * members, "collection.host_sync": shared, "collection.compute": 1,
               "collection.forward": steps, "collection.lockstep": 2 * steps + 1, "metric.forward_update": steps * fused}
     return {name: n for name, n in counts.items() if n}
@@ -7116,6 +7136,7 @@ def _o_leg(device, a_batches, leg, trace_dir):
     import metrics_tpu_torch.observability as obs
     from metrics_tpu_torch.ops.binned import binned_counts_cuda
 
+    step_reduces = _packed_step_reduces(_main_collection(device, dist_sync_on_step=True))
     obs.disable()
     obs.reset()
     if leg == "spans":
@@ -7132,6 +7153,7 @@ def _o_leg(device, a_batches, leg, trace_dir):
             epoch = col.compute()
         _sync(device)
         out = {"values": values, "epoch": epoch, "ms": ms, "launches": launches, "step_calls": dict(step_calls),
+               "step_reduces": step_reduces,
                "epoch_calls": dict(epoch_calls), "want_spans": _o_phase_counts(col, len(a_batches)),
                "groups": {rep: list(m) for rep, m in col.compute_groups.items()}}
         if leg != "off":
@@ -7343,9 +7365,10 @@ def check_path_o(result, a_values, a_epoch, a_ms, b_values):
             raise AssertionError(f"path O1 {leg}: epoch values differ from path A's")
         _check(run["launches"] == 0, f"path O1 {leg}: no K1 launch on path A (read {run['launches']})")
         groups = len(run["groups"])
-        _check(run["step_calls"]["all_reduce"] == groups * len(a_values) and run["epoch_calls"]["all_reduce"] == groups,
-               f"path O1 {leg}: one all_reduce a compute group a step ({run['step_calls']}) and at the epoch"
-               f" ({run['epoch_calls']})")
+        _check(run["step_calls"]["all_reduce"] == run["step_reduces"] * len(a_values)
+               and run["epoch_calls"]["all_reduce"] == groups,
+               f"path O1 {leg}: {run['step_reduces']} all_reduce a step, the packed sync's ({run['step_calls']}), and"
+               f" one a compute group at the epoch ({run['epoch_calls']})")
     first = {}
     for leg, run in o1["runs"]:
         first.setdefault(leg, run)
@@ -7363,9 +7386,9 @@ def check_path_o(result, a_values, a_epoch, a_ms, b_values):
         snap = run["snapshot"]
         _check(tuple(sorted(snap)) == O_SNAPSHOT_KEYS, f"path O1 {leg}: counters_snapshot() has the JAX schema's keys")
         groups = len(run["groups"])
-        _check(snap["calls_by_kind"].get("psum") == groups * (len(a_values) + 1),
-               f"path O1 {leg}: counters count one all_reduce a compute group a step and at the epoch"
-               f" ({snap['calls_by_kind']})")
+        _check(snap["calls_by_kind"].get("psum") == run["step_reduces"] * len(a_values) + groups,
+               f"path O1 {leg}: counters count the packed sync's all_reduce a step and one a compute group at the"
+               f" epoch ({snap['calls_by_kind']})")
         _check(run["summary"]["metric.sync_state"]["state_bytes"] > 0 and snap["state_bytes"],
                f"path O1 {leg}: summarize() has state_bytes ({run['summary']['metric.sync_state']['state_bytes']})"
                f" and the gauge {snap['state_bytes']}")

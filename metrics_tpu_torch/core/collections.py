@@ -8,9 +8,23 @@ Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
   ``Metric._group_fingerprint``) share ONE update delta per step;
 * ``forward``: one update per compute group, the delta merged into each
   member's own accumulator, each member's batch value computed from the
-  delta; ``dist_sync_on_step`` members of a group share ONE per-step sync of
-  that delta (``_step_sync_shares``). The port syncs whenever a
-  ``torch.distributed`` group is initialized, even at world size 1;
+  delta. The port syncs whenever a ``torch.distributed`` group is
+  initialized, even at world size 1. A step's ``dist_sync_on_step`` members
+  share packed syncs (``_step_sync_packs``): first every member folds its
+  batch into its accumulator, in member order (a singleton inside its own
+  ``metric.forward`` span); then the eligible members' deltas (one a compute
+  group) sync in ONE call of the bucketed plane, one ``all_reduce`` per
+  (dtype, op) bucket of the whole step (``sync_state``), inside one
+  ``collection.step_sync`` span; then each member computes its value from
+  its slice, under its own ``check_finite`` policy, with the sync counted as
+  its own. Eligible: ``dist_sync_on_step`` and ``compute_on_step``, no
+  ``sync_lag``, no ``dist_sync_fn``, no ``class_sharded`` placement, no
+  sharded engine (``_states_own_sync``), mergeable states, the base
+  ``forward``, and the first such member's ``process_group``, in a step with
+  at least two of them. So a packed step records no ``metric.sync_state``.
+  The host plane (``dist_sync_fn``) packs only within a shared compute group
+  (one gather of its delta); every other member syncs in its own
+  ``compute``, as it would alone;
 * ``compute``: the grouped epoch sync (the synchronous form of the JAX
   package's ``_grouped_host_sync``). When a ``torch.distributed`` group is
   initialized or a ``dist_sync_fn`` is set, each compute group of >= 2
@@ -39,11 +53,12 @@ Counterpart of ``metrics_tpu/core/collections.py`` (the eager grouped path):
   readable by the JAX package and back;
 * ``clone(prefix=)``, a deep copy under another prefix;
 * ``epoch_watermark`` (the least member watermark) and ``guarded_update``;
-  ``sync_lag >= 1`` members take no part in the shared per-step sync (their
+  ``sync_lag >= 1`` members take no part in the packed per-step sync (their
   syncs are deferred on their own handle rings), and ``sync_state(...,
   deferred=True)`` returns one handle that resolves to the nested state;
 * the JAX package's spans, each with its device-time fence:
-  ``collection.group_update`` / ``collection.step_sync`` (``{"group": rep}``),
+  ``collection.group_update`` (``{"group": rep}``), ``collection.step_sync``
+  (``{"group": the pack's first member, "members": n}``),
   ``collection.host_sync`` (``{"group", "shared"}``, and ``"deferred":
   "yes"`` on the deferred epoch), ``collection.forward_batched`` and
   ``collection.compute`` (``{"members": n}``). The port has no fused
@@ -208,41 +223,84 @@ class MetricCollection(nn.ModuleDict):
             sizes[rep] = sizes.get(rep, 0) + 1
         return {k: rep for k, rep in gm.items() if sizes[rep] > 1 and self[rep]._fusable}
 
-    def _step_sync_shares(self, shared: Dict[str, str]) -> Dict[str, str]:
-        """member -> representative, for ``dist_sync_on_step`` members whose
-        per-step delta sync can be shared by the whole group: same
-        ``dist_sync_fn`` and ``process_group`` as the group's first such
-        member, and at least two of them."""
-        active = dist_active()
-        by_rep: Dict[str, list] = {}
-        for k, rep in shared.items():
-            m = self[k]
-            if (m.dist_sync_on_step and m.compute_on_step and not m.sync_lag and not m._states_own_sync()
-                    and (m.dist_sync_fn is not None or active)):
-                by_rep.setdefault(rep, []).append(k)
-        out: Dict[str, str] = {}
-        for rep, members in by_rep.items():
-            leader = self[members[0]]
-            share = [
-                k for k in members
-                if self[k].dist_sync_fn is leader.dist_sync_fn and self[k].process_group == leader.process_group
-            ]
-            if len(share) >= 2:
-                out.update({k: rep for k in share})
-        return out
+    # ------------------------------------------------------ packed step sync
+    @staticmethod
+    def _packs_step_sync(m: Metric) -> bool:
+        """Whether member ``m`` may sync its batch delta in a pack, outside
+        its own ``compute``: a synced batch value, no deferred ring, no class
+        blocks, no sharded engine, mergeable states and the base forward."""
+        return (m.dist_sync_on_step and m.compute_on_step and not m.sync_lag and m._class_placement() is None
+                and not m._states_own_sync() and m._fusable and type(m).forward is Metric.forward)
 
-    def _synced_step_delta(self, rep: str, member: str, delta: Any, cache: Dict[str, Any]) -> Any:
-        """The group's batch delta after ONE shared cross-rank sync."""
-        if rep not in cache:
-            m = self[member]
-            if TRACE.enabled:
-                with _span("collection.step_sync", {"group": rep}):
-                    cache[rep] = m._synced_state(m.dist_sync_fn, state=delta)
-                    if _DEVTIME.enabled:
-                        _fence(cache[rep])
-            else:
-                cache[rep] = m._synced_state(m.dist_sync_fn, state=delta)
-        return cache[rep]
+    def _step_sync_packs(self, shared: Dict[str, str]) -> List[List[str]]:
+        """The step's packed syncs: lists of at least two members whose batch
+        deltas sync in ONE call. The bucketed plane's pack holds every member
+        without a ``dist_sync_fn`` and with the first such member's
+        ``process_group``, from any compute group. The host plane gathers one
+        compute group's delta at a time: a pack a shared group, of its members
+        with the ``dist_sync_fn`` and ``process_group`` of the first. Members
+        in no pack sync on their own."""
+        bucketed: List[str] = []
+        hosted: Dict[str, List[str]] = {}
+        active = dist_active()
+        for k, m in self.items():
+            if not self._packs_step_sync(m):
+                continue
+            if m.dist_sync_fn is None:
+                if active:
+                    bucketed.append(k)
+            elif k in shared:
+                hosted.setdefault(shared[k], []).append(k)
+        packs: List[List[str]] = []
+        for members in (bucketed, *hosted.values()):
+            if not members:
+                continue
+            lead = self[members[0]]
+            pack = [k for k in members
+                    if self[k].dist_sync_fn is lead.dist_sync_fn and self[k].process_group == lead.process_group]
+            if len(pack) >= 2:
+                packs.append(pack)
+        return packs
+
+    @staticmethod
+    def _member_fold(m: Metric, args: tuple, kwargs: dict) -> Dict[str, Any]:
+        """A packed singleton's forward up to its value: the batch delta
+        folded into its accumulator, inside its own ``metric.forward`` span,
+        so the member's kernels launch inside that range."""
+        if TRACE.enabled:
+            with _span("metric.forward", {"metric": type(m).__name__}):
+                delta = m._fold_batch(*args, **kwargs)
+                if _DEVTIME.enabled:
+                    _fence((delta, m._current_state()))
+                return delta
+        return m._fold_batch(*args, **kwargs)
+
+    def _packed_values(self, pack: List[str], shared: Dict[str, str], deltas: Dict[str, Any]) -> Dict[str, Any]:
+        """ONE sync of a pack's batch deltas (an entry a compute group), then
+        each member's batch value from its entry under its own
+        ``check_finite`` policy."""
+        entries = {shared.get(k, k): deltas[shared.get(k, k)] for k in pack}
+        for k in pack:
+            self[k]._enter_sync()
+        lead = self[pack[0]]
+        if TRACE.enabled:
+            with _span("collection.step_sync", {"group": pack[0], "members": len(pack)}):
+                synced = self._synced_entries(lead, entries)
+                if _DEVTIME.enabled:
+                    _fence(synced)
+        else:
+            synced = self._synced_entries(lead, entries)
+        values: Dict[str, Any] = {}
+        for k in pack:
+            m, entry = self[k], shared.get(k, k)
+            m._forward_cache = values[k] = m._value_of_synced(synced[entry], entries[entry])
+        return values
+
+    def _synced_entries(self, lead: Metric, entries: Dict[str, Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
+        if lead.dist_sync_fn is not None:  # the host plane: one compute group's delta
+            (entry, delta), = entries.items()
+            return {entry: lead._synced_state(lead.dist_sync_fn, state=delta)}
+        return self.sync_state(entries, group=lead.process_group)
 
     def _group_delta(self, rep: str, args: tuple, kwargs: dict) -> Dict[str, Any]:
         """ONE batch delta for a compute group, from its representative."""
@@ -279,32 +337,32 @@ class MetricCollection(nn.ModuleDict):
 
     def _forward_eager_body(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         shared = self._eager_shared_groups()
-        step_shares = self._step_sync_shares(shared)
-        deltas: Dict[str, Any] = {}
-        synced_deltas: Dict[str, Any] = {}
-        out: Dict[str, Any] = {}
+        packs = self._step_sync_packs(shared)
+        packed = {k for pack in packs for k in pack}
+        deltas: Dict[str, Any] = {}  # a compute group's representative, or a packed singleton -> its batch delta
+        values: Dict[str, Any] = {}
         for k, m in self.items():
             kw = m._filter_kwargs(**kwargs)
             rep = shared.get(k)
             if rep is None:
-                out[self._set_prefix(k)] = m(*args, **kw)
+                if k in packed:
+                    deltas[k] = self._member_fold(m, args, kw)
+                else:
+                    values[k] = m(*args, **kw)
                 continue
             if rep not in deltas:
                 deltas[rep] = self._group_delta(rep, args, kwargs)
-            delta = deltas[rep]
             m._computed = None
             m._forward_cache = None
             m._note_rows(args, kw)
-            m._set_state(m.merge_states(m._current_state(), delta))
-            value = None
-            if m.compute_on_step:
-                if k in step_shares:
-                    value = m._compute_on(self._synced_step_delta(rep, k, delta, synced_deltas), sync=False)
-                else:
-                    value = m._compute_on(delta, sync=m.dist_sync_on_step)
-                m._forward_cache = value
-            out[self._set_prefix(k)] = value
-        return out
+            m._set_state(m.merge_states(m._current_state(), deltas[rep]))
+            if k not in packed:
+                if m.compute_on_step:
+                    m._forward_cache = m._compute_on(deltas[rep], sync=m.dist_sync_on_step)
+                values[k] = m._forward_cache
+        for pack in packs:
+            values.update(self._packed_values(pack, shared, deltas))
+        return {self._set_prefix(k): values[k] for k in self}
 
     def forward_batched(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Accumulate a whole stack of batches (leading axis = steps): one

@@ -663,6 +663,16 @@ class Metric(nn.Module, ABC):
         return self._forward_reference(*args, **kwargs)
 
     def _forward_fused(self, *args: Any, **kwargs: Any) -> Any:
+        delta = self._fold_batch(*args, **kwargs)
+        if not self.compute_on_step:
+            return None
+        self._forward_cache = self._compute_on(delta, sync=self.dist_sync_on_step)
+        return self._forward_cache
+
+    def _fold_batch(self, *args: Any, **kwargs: Any) -> State:
+        """The fused forward's update half: the batch's delta on a fresh
+        state, merged into the accumulator under the ``check_finite`` policy.
+        Returns the delta."""
         self._computed = None
         self._forward_cache = None
         check_same_device(self.device, *args, *kwargs.values())
@@ -675,10 +685,7 @@ class Metric(nn.Module, ABC):
             delta = self._run_update_on_state(self.init_state(), *args, **kwargs)
         self._set_state(self.merge_states(self._current_state(), delta))
         self._guard_state_integrity("forward", revert_to)
-        if not self.compute_on_step:
-            return None
-        self._forward_cache = self._compute_on(delta, sync=self.dist_sync_on_step)
-        return self._forward_cache
+        return delta
 
     def forward_batched(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate a whole stack of batches (leading axis = steps); returns
@@ -841,6 +848,30 @@ class Metric(nn.Module, ABC):
         self._set_state(self._synced_state(dist_sync_fn, timer=timer))
         self._guard_state_integrity("sync", local)
         self._note_state_bytes()
+
+    def _enter_sync(self) -> None:
+        """What a synchronous sync of this metric's state is preceded by:
+        in-flight deferred syncs resolve first (a synchronous sync never
+        overtakes them), the debug sync-count check, and the count itself."""
+        self._drain_handle_ring()
+        if debug.sync_count_check_enabled():
+            self._check_sync_count(self.dist_sync_fn)
+        self._sync_count += 1
+
+    def _value_of_synced(self, synced: State, local: State) -> Any:
+        """The batch value of a delta synced outside this metric (a
+        collection's packed step sync, entered after :meth:`_enter_sync`):
+        ``synced`` under the ``check_finite`` policy, as ``_sync_dist``
+        applies it (``quarantine`` computes from ``local``), leaving the
+        accumulator as it is."""
+        acc = self._current_state()
+        self._set_state(synced)
+        try:
+            self._guard_state_integrity("sync", local)
+            state = self._current_state()
+        finally:
+            self._set_state(acc)
+        return self._compute_on(state, sync=False)
 
     def _dispatch_deferred(self, dist_sync_fn: Optional[Callable], attrs: Optional[Dict[str, Any]] = None,
                            label: str = "host_gather") -> Any:
@@ -1025,11 +1056,7 @@ class Metric(nn.Module, ABC):
                     self._guard_state_integrity("sync", cache)
                     self._note_state_bytes()
             elif synced:
-                # entry order: a synchronous sync never overtakes in-flight deferred ones
-                self._drain_handle_ring()
-                if debug.sync_count_check_enabled():
-                    self._check_sync_count(self.dist_sync_fn)
-                self._sync_count += 1
+                self._enter_sync()
                 auto = self._lag_controller is not None and self.sync_lag == "auto" and self._in_forward
                 self._sync_dist(self.dist_sync_fn, timer=self._lag_controller.observe if auto else None)
             try:

@@ -9,6 +9,10 @@
   ``compute``, with the list elements it walked.
 * A shared compute group records ``collection.group_update`` and
   ``collection.step_sync`` under the root.
+* In a one-rank Gloo group the members' packed step sync: one
+  ``collection.step_sync`` (``members``) after a ``metric.forward`` range a
+  member, in member order, each holding its member's update ops; the
+  collective in the sync's range alone; its idle time in the ``sync`` layer.
 * The layers' self times (``devtime.span_self_ms``) add up to the root's
   duration.
 * A real CPU ``torch.profiler`` session through ``start_trace`` /
@@ -52,11 +56,11 @@ def _images(seed=0, n=2, size=24):
     return (target + 0.05 * torch.randn((n, 3, size, size), generator=g)).clamp(0, 1), target
 
 
-def _image_collection():
+def _image_collection(gather=_gather):
     col = pt.MetricCollection([pt.SSIM(data_range=1.0, kernel_size=(5, 5), **CPU), pt.PSNR(data_range=1.0, **CPU),
                                pt.UniversalImageQualityIndex(kernel_size=(5, 5), **CPU)])
     for m in col.values():
-        m.dist_sync_fn, m.dist_sync_on_step = _gather, True
+        m.dist_sync_fn, m.dist_sync_on_step = gather, True
     return col
 
 
@@ -142,6 +146,70 @@ def test_shared_group_records_group_update_and_step_sync_under_the_root():
         ("collection.lockstep", "collection.forward", 1),
     ]
     assert len({r.root_id for r in records}) == 1
+
+
+def test_packed_step_records_one_step_sync_and_a_forward_range_a_member(tmp_path):
+    """In a one-rank Gloo group the three members' deltas share one ``collection.step_sync``; each member's
+    update ops lie in its own ``metric.forward`` range, one range a member in member order (what
+    ``portbench/trace_reader.py`` matches to the members); the idle attribution puts the packed sync in ``sync``."""
+    import torch.distributed as dist
+
+    members = ("SSIM", "PSNR", "UniversalImageQualityIndex")
+    col = _image_collection(gather=None)
+    preds, target = _images(3)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        col(preds, target)  # built and warm
+        pobs.enable(spans=True, counters=False)
+        pobs.start_trace(str(tmp_path))
+        try:
+            for _ in range(3):
+                with torch.profiler.record_function("unit"):
+                    col(preds, target)
+        finally:
+            path = pobs.stop_trace()
+    finally:
+        dist.destroy_process_group()
+    records = sorted(pprofiler.last_session().records, key=lambda r: r.start_ns)
+    roots = [r for r in records if r.name == "collection.forward"]
+    assert len(roots) == 3
+    want = [("collection.forward", None, 0, None), ("collection.lockstep", "collection.forward", 1, None)]
+    for member in members:
+        want += [("metric.forward", "collection.forward", 1, member),
+                 ("metric.forward_update", "metric.forward", 2, member)]
+    want.append(("collection.step_sync", "collection.forward", 1, None))
+    want += [("metric.compute", "collection.forward", 1, member) for member in members]
+    want.append(("collection.lockstep", "collection.forward", 1, None))
+    for root in roots:
+        step = [r for r in records if r.root_id == root.span_id]
+        assert _shape(step) == want
+        assert [r.attrs for r in step if r.name == "collection.step_sync"] == [{"group": "SSIM", "members": 3}]
+
+    events = json.loads(open(path).read())["traceEvents"]
+    scopes = sorted((e for e in events if e.get("cat") == "user_annotation"), key=lambda e: e["ts"])
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+
+    def inside(e, scope):
+        return scope["ts"] <= e["ts"] and e["ts"] + e["dur"] <= scope["ts"] + scope["dur"]
+
+    forwards = [e for e in scopes if e["name"] == "metric.forward"]
+    updates = [e for e in scopes if e["name"] == "metric.forward_update"]
+    names = [r.attrs["metric"] for r in records if r.name == "metric.forward"]
+    assert names == list(members) * 3 and len(forwards) == len(updates) == len(names)
+    for forward, update in zip(forwards, updates):
+        assert inside(update, forward)
+        assert any(inside(op, update) for op in ops)  # the member's update ops, launched in its range
+    syncs = [e for e in scopes if e["name"] == "collection.step_sync"]
+    reduces = [op for op in ops if op["name"] == "c10d::allreduce_"]
+    assert len(syncs) == 3 and reduces and all(any(inside(op, sync) for sync in syncs) for op in reduces)
+    assert not any(inside(op, forward) for op in reduces for forward in forwards)
+
+    found = pdevtime.idle_attribution(path, records, pprofiler.last_session().anchors, window="unit",
+                                      thread_id=threading.get_ident())
+    assert found["clock"]["joined"] == len(records)
+    idle = found["idle_ms"]
+    assert "metric.sync_state" not in idle["by_span"] and idle["by_span"]["collection.step_sync"] > 0
+    assert idle["by_layer"]["sync"] == pytest.approx(idle["by_span"]["collection.step_sync"], abs=1e-9)
 
 
 def test_layer_self_times_add_up_to_the_root():

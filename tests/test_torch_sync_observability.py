@@ -23,8 +23,9 @@ wrapped to record every collective (kind, dtype, size) in entry order:
   (``mtpu-torch-deferred-host``), with the ``plane`` / ``label`` /
   ``lag_controller`` attrs; over the bucketed plane, dispatch and fence.
 * A chaos-degraded sync (``parallel/faults.py``'s ``ChaosInjector``, every
-  gather dropped, ``policy="degrade"``): the ``metric.sync_state`` and
-  ``collection.step_sync`` spans carry ``degraded="yes"``.
+  gather dropped, ``policy="degrade"``): the ``collection.step_sync`` span of
+  a collection's packed step and the ``metric.sync_state`` span of a metric
+  stepped alone carry ``degraded="yes"``.
 
 Every child is killed if it outlives its timeout; this process never joins a
 group. Tolerances: counts and collective records are equal; values from
@@ -171,9 +172,11 @@ _WORKER = textwrap.dedent("""
         col = pt.MetricCollection([pt.Accuracy(device="cpu", dist_sync_on_step=True),
                                    pt.F1(num_classes=5, average="macro", device="cpu", dist_sync_on_step=True),
                                    pt.Precision(num_classes=5, average="macro", device="cpu", dist_sync_on_step=True)])
+        alone = pt.Accuracy(device="cpu", dist_sync_on_step=True)
         with faults.ChaosInjector([faults.FaultSpec(kind="drop", rate=1.0, times=10**6)], seed=1):
             for b in batches[:2]:
                 col(*b)
+                alone(*b)
         res["degraded"] = [[r.name, r.attrs] for r in obs.records()
                            if r.name in ("metric.sync_state", "collection.step_sync")]
         res["degraded_faults"] = obs.counters_snapshot()["faults"]["degraded_computes"]
@@ -296,4 +299,4 @@ def test_degraded_sync_spans_are_stamped(ranks):
         names = sorted({n for n, a in res["degraded"] if a.get("degraded") == "yes"})
         assert names == ["collection.step_sync", "metric.sync_state"]
         assert all(a.get("degraded") == "yes" for _n, a in res["degraded"])
-        assert res["degraded_faults"] == 2 * 2  # two syncs a step (Accuracy, the group), two steps
+        assert res["degraded_faults"] == 2 * 2  # two syncs a step (the collection's packed one, Accuracy's), two steps

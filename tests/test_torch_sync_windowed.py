@@ -13,8 +13,8 @@ ring slots stay aligned, as a stream whose producers share one event clock:
   events, slab for slab;
 * ``MetricCollection([Accuracy, F1, Precision, Recall]).pure().sync`` makes one
   ``all_reduce`` per (dtype, op) bucket of the deduplicated state (one: every
-  state is an int64 sum), where the stateful collection's per-step sync makes
-  one a compute group (two), and its values equal one process's;
+  state is an int64 sum), as the stateful collection's packed per-step sync
+  does, and its values equal one process's;
 * ``WatermarkAgreement.exchange()`` in a world of 3 agrees on the minimum of
   the three processes' reports (one ``all_reduce``), and a report alone
   dispatches no round.
@@ -207,6 +207,6 @@ def test_three_rank_gloo_windowed_and_pure_collection_sync(tmp_path):
         pure = res["pure"]
         assert pure["entries"] == ["Accuracy", "F1"] and pure["own"] == 0
         assert pure["calls"] == ["all_reduce"], r  # one int64 sum bucket for the whole collection
-        assert res["step_calls"] == ["all_reduce", "all_reduce"]  # the stateful per-step sync: one a group
+        assert res["step_calls"] == ["all_reduce"]  # the stateful per-step sync: the step's deltas packed
         assert pure["values"] == want, r
         assert res["exchange"] == {"agreed": 10.0, "report_calls": [], "calls": ["all_reduce"], "exchanges": 1}
